@@ -1,7 +1,7 @@
 .PHONY: install lint type-check format format-check test coverage bench run
 
 install:
-	pip install -e .
+	pip install -e .[dev,plot,ml]
 
 lint:
 	flake8 pararealml_tpu tests

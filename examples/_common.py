@@ -4,20 +4,22 @@ Setting ``PRML_SMOKE=1`` activates smoke mode, which monkeypatches the
 library's expensive knobs (time horizon, training epochs, data-set
 size) so the test suite can execute every example script end-to-end in
 seconds while the scripts themselves stay byte-identical to their
-full-scale, reference-comparable configurations
-(/root/reference/examples/).
+full-scale configurations, which match upstream PararealML's examples.
 """
+import importlib.util
 import os
 import sys
 
-import matplotlib
+if importlib.util.find_spec("matplotlib") is not None:
+    import matplotlib
 
-matplotlib.use("Agg")
+    matplotlib.use("Agg")
 sys.path.insert(
     0, os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
 
 SMOKE = os.environ.get("PRML_SMOKE") == "1"
+_SMOKE_MAX_ESTIMATORS = 4
 
 
 def _activate_smoke_mode():
@@ -30,6 +32,8 @@ def _activate_smoke_mode():
     - physics-informed training runs two epochs;
     - supervised-ML data generation solves two perturbed IVPs;
     - ``SKLearnJaxRegressor`` model fits run two epochs;
+    - scikit-learn ensembles fitted by ``SupervisedMLOperator`` keep at
+      most ``_SMOKE_MAX_ESTIMATORS`` estimators;
     - animated plots render ``PRML_SMOKE_FRAMES`` (default two) frames
       (full-scale GIFs take minutes per plot under the Pillow writer).
     """
@@ -121,6 +125,17 @@ def _activate_smoke_mode():
         )
 
     SupervisedMLOperator.train = smoke_sml_train  # type: ignore
+
+    sml_fit = SupervisedMLOperator.fit_model
+
+    def smoke_sml_fit(self, model, data, *a, **kw):
+        if hasattr(model, "n_estimators"):
+            model.set_params(
+                n_estimators=min(_SMOKE_MAX_ESTIMATORS, model.n_estimators)
+            )
+        return sml_fit(self, model, data, *a, **kw)
+
+    SupervisedMLOperator.fit_model = smoke_sml_fit  # type: ignore
 
     regressor_init = SKLearnJaxRegressor.__init__
 

@@ -5,7 +5,7 @@
 # coarse operator is a ReducedQuadraticStateOperatorRegressor: a
 # closed-form ridge fit of a full-rank linear term plus a quadratic
 # term in a POD-reduced subspace of the training states, applied as
-# two dense MXU matmuls per slice jump inside the compiled Parareal
+# two dense matmuls per slice jump inside the compiled Parareal
 # program.
 import _common  # noqa: F401
 import numpy as np

@@ -37,7 +37,7 @@ ivp = InitialValueProblem(cp, (0.0, 40.0), ic)
 
 f = FDMOperator(RK4(), ThreePointCentralDifferenceMethod(), 0.001)
 g = FDMOperator(RK4(), ThreePointCentralDifferenceMethod(), 0.01)
-p = PararealOperator(f, g, 0.0025)
+p = PararealOperator(f, g, 0.0025, num_time_slices=8)
 
 device_time("fine")(f.solve)(ivp)
 device_time("coarse")(g.solve)(ivp)

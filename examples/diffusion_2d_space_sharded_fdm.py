@@ -3,7 +3,7 @@
 # evaluation, and the stored trajectory shard over all visible devices,
 # with the halo exchanges inserted by XLA's SPMD partitioner. Run with
 # XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu
-# to try an 8-way decomposition without a TPU pod slice.
+# to try an 8-way decomposition without several accelerators.
 import _common  # noqa: F401
 import numpy as np
 
@@ -35,7 +35,7 @@ ic = GaussianInitialCondition(
 ivp = InitialValueProblem(cp, (0.0, 2.0), ic)
 
 single = FDMOperator(
-    RK4(), ThreePointCentralDifferenceMethod(), 0.002, fused_kernels=False
+    RK4(), ThreePointCentralDifferenceMethod(), 0.002
 )
 sharded = FDMOperator(
     RK4(),

@@ -3,7 +3,7 @@
 # `time` axis while every fine/coarse stencil evaluation decomposes
 # over its `space` axis, all one compiled GSPMD program. Run with
 # XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu
-# to try a 2x4 (time x space) mesh without a TPU pod slice.
+# to try a 2x4 (time x space) mesh without several accelerators.
 import _common  # noqa: F401
 import jax
 import numpy as np
@@ -37,10 +37,10 @@ ic = GaussianInitialCondition(
 ivp = InitialValueProblem(cp, (0.0, 4.0), ic)
 
 f = FDMOperator(
-    RK4(), ThreePointCentralDifferenceMethod(), 0.002, fused_kernels=False
+    RK4(), ThreePointCentralDifferenceMethod(), 0.002
 )
 g = FDMOperator(
-    RK4(), ThreePointCentralDifferenceMethod(), 0.01, fused_kernels=False
+    RK4(), ThreePointCentralDifferenceMethod(), 0.01
 )
 
 devices = np.array(jax.devices())

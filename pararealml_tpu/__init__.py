@@ -1,10 +1,10 @@
-"""pararealml_tpu: a TPU-native differential-equation solving framework.
+"""pararealml_tpu: a JAX differential-equation solving framework.
 
-A ground-up JAX/XLA/Pallas re-design with the capabilities of the
+A ground-up JAX/XLA re-design with the capabilities of the
 reference *PararealML* library: a unified ``Operator.solve(ivp)``
 interface, interchangeable solvers (FDM, adaptive ODE, supervised ML,
 physics-informed ML), and a Parareal parallel-in-time framework that runs
-as a single compiled XLA program over a TPU device mesh instead of MPI
+as a single compiled XLA program over a device mesh instead of MPI
 ranks.
 
 The public API surface mirrors the reference package root

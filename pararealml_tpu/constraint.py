@@ -1,6 +1,6 @@
 """Traceable value constraints.
 
-TPU-native rethink of the reference's ``Constraint`` (see
+Array-native rethink of the reference's ``Constraint`` (see
 /root/reference/pararealml/constraint.py:6-131). The reference stores a
 compressed 1D value vector plus a boolean mask and mutates arrays in place
 via fancy indexing; neither pattern traces under ``jax.jit``. Here a
@@ -28,7 +28,7 @@ class Constraint:
     Unlike the reference implementation, both ``mask`` and ``values`` span
     the full constrained region; unconstrained positions simply carry a
     ``False`` mask bit (their value entries are ignored). This makes every
-    operation a fused element-wise select on TPU instead of a scatter.
+    operation a fused element-wise select instead of a scatter.
     """
 
     def __init__(self, values: Array, mask: Array):

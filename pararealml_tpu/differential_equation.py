@@ -6,9 +6,10 @@ coordinate-system-agnostic symbol vocabulary (``t``, ``y_i``, ``x_j``,
 gradients, Hessians, divergence, curl, Laplacians), an LHS-typed equation
 system, a validating ``DifferentialEquation`` base class, and the same 13
 built-in equations. The symbols carry the same name grammar
-(``y-gradient_1_0`` etc.) because the symbol mappers parse it; everything
-downstream compiles the right-hand sides to ``jax.numpy`` instead of NumPy
-or TensorFlow.
+(``y-gradient_1_0`` etc.) because the symbol mappers parse it. The
+symbols and right-hand sides are :mod:`pararealml_tpu.expression` trees
+(the reference uses SymPy), which everything downstream compiles to
+``jax.numpy``.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from enum import Enum
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
-from sympy import Expr, Symbol, symarray
+
+from pararealml_tpu.expression import Expr, Symbol, as_expr, symarray
 
 
 class Symbols:
@@ -136,7 +138,7 @@ class SymbolicEquationSystem:
                 f"of left-hand side ({len(lhs_types)})"
             )
 
-        self._rhs = list(rhs)
+        self._rhs = [as_expr(expression) for expression in rhs]
         self._lhs_types = list(lhs_types)
 
         self._indices_by_type: Dict[LHS, List[int]] = {t: [] for t in LHS}
@@ -420,25 +422,25 @@ class NBodyGravitationalEquation(DifferentialEquation):
         accelerations = [
             np.zeros(d, dtype=object) for _ in range(n)
         ]
+        # accelerate each object by g * m_other / r^3 * displacement
+        # directly: the force g * m_i * m_j overflows float32 for
+        # astronomical masses, and expressions are evaluated as written
         for i in range(n):
             for j in range(i + 1, n):
                 displacement = positions[j] - positions[i]
                 distance = sum(c**2 for c in displacement) ** 0.5
-                pair_force = (
-                    self._g
-                    * self._masses[i]
-                    * self._masses[j]
-                    / distance**3
+                inverse_cube = 1.0 / distance**3
+                accelerations[i] = accelerations[i] + (
+                    self._g * self._masses[j] * inverse_cube
                 ) * displacement
-                accelerations[i] = accelerations[i] + pair_force
-                accelerations[j] = accelerations[j] - pair_force
+                accelerations[j] = accelerations[j] - (
+                    self._g * self._masses[i] * inverse_cube
+                ) * displacement
 
         rhs = np.empty(2 * n_pos, dtype=object)
         rhs[:n_pos] = y[n_pos:]
         for i in range(n):
-            rhs[n_pos + i * d: n_pos + (i + 1) * d] = (
-                accelerations[i] / self._masses[i]
-            )
+            rhs[n_pos + i * d: n_pos + (i + 1) * d] = accelerations[i]
         return SymbolicEquationSystem(rhs)
 
 

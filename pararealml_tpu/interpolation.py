@@ -1,6 +1,6 @@
 """On-device rectilinear-grid interpolation.
 
-TPU-native replacement for the host-side SciPy ``interpn`` calls the
+On-device replacement for the host-side SciPy ``interpn`` calls the
 reference makes when resampling solutions and initial conditions
 between mesh orientations (/root/reference/pararealml/solution.py:114-180,
 /root/reference/pararealml/initial_condition.py:95-121): a jittable

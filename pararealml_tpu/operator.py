@@ -1,7 +1,7 @@
 """The solver-operator interface.
 
 Capability match for /root/reference/pararealml/operator.py:13-74, plus the
-TPU-native :class:`JaxOperator` extension: operators that can expose their
+JAX-native :class:`JaxOperator` extension: operators that can expose their
 whole solve as a pure, jit-traceable trajectory function participate in
 fully-compiled composition (most importantly the single-program
 ``shard_map`` Parareal in
@@ -62,7 +62,6 @@ class JaxOperator(Operator):
         self,
         cp,
         t_interval: TemporalDomainInterval,
-        allow_fused: bool = True,
         time_parallel: bool = False,
     ) -> Tuple[Callable[[jax.Array, jax.Array], jax.Array], np.ndarray]:
         """Returns ``(fn, t_coordinates)`` where ``fn(y_0, t_0)`` maps the
@@ -75,10 +74,9 @@ class JaxOperator(Operator):
         be traceable for any ``t_0`` so Parareal can reuse one compiled
         instance for every time slice.
 
-        :param allow_fused: whether hand-fused kernels may be used; a
-            caller that needs to transform the function in ways fused
-            kernels do not support (e.g. ``vmap`` batching) passes
-            ``False``; operators without fused paths ignore it
+        The function must also be ``vmap``-able, since Parareal batches
+        several time slices per device through ``vmap``.
+
         :param time_parallel: whether the caller is a parallel-in-time
             composition (e.g. Parareal), in which case the operator may
             use trajectory formulations that are themselves parallel

@@ -21,7 +21,6 @@ whole solve is one ``jax.jit``-compiled ``lax.scan`` over time steps:
 
 from __future__ import annotations
 
-import warnings
 from typing import Callable, Optional, Tuple
 
 import jax
@@ -30,10 +29,7 @@ import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec
 
 from pararealml_tpu.constrained_problem import ConstrainedProblem
-from pararealml_tpu.constraint import (
-    Constraint,
-    apply_constraints_along_last_axis,
-)
+from pararealml_tpu.constraint import apply_constraints_along_last_axis
 from pararealml_tpu.differential_equation import LHS
 from pararealml_tpu.initial_value_problem import InitialValueProblem
 from pararealml_tpu.operator import JaxOperator, discretize_time_domain
@@ -73,11 +69,7 @@ class FDMOperator(JaxOperator):
         integrator: NumericalIntegrator,
         differentiator: NumericalDifferentiator,
         d_t: float,
-        fused_kernels: bool = True,
         linear_propagator: bool = True,
-        kernel_storage_dtype=None,
-        kernel_traj_dtype=None,
-        kernel_temporal_block: int = 1,
         spatial_mesh=None,
         spatial_partition=None,
     ):
@@ -85,48 +77,26 @@ class FDMOperator(JaxOperator):
         :param integrator: the time integrator to use
         :param differentiator: the spatial differentiator to use
         :param d_t: the temporal step size
-        :param fused_kernels: whether to use hand-fused Pallas TPU
-            kernels for step computations on the problem classes they
-            cover (2D Cartesian diffusion and convection-diffusion at
-            any grid size via whole-grid-in-VMEM or block-tiled
-            kernels, plus the two-component wave and Burgers systems,
-            all with static boundary conditions under RK4 in float32);
-            the generic jnp path is used otherwise
         :param linear_propagator: whether parallel-in-time callers
             (``trajectory_function(..., time_parallel=True)``, i.e.
             Parareal sub-solves) may compute trajectories of *linear*
-            problems as exact affine-propagator matmuls on the MXU
+            problems as exact affine-propagator matmuls
             (:mod:`pararealml_tpu.ops.linear_propagator`) instead of
             sequential stencil stepping; plain ``solve`` calls always
             time-step
-        :param kernel_storage_dtype: HBM state/trajectory precision of
-            the block-tiled fused kernels on beyond-VMEM grids
-            (``jnp.bfloat16`` halves their HBM traffic; stencil
-            arithmetic stays f32 regardless); ``None`` keeps float32
-        :param kernel_traj_dtype: trajectory snapshot precision of the
-            block-tiled streaming kernels, independent of the state
-            (``jnp.bfloat16`` over an f32 state halves the dominant
-            DMA stream while each snapshot rounds exactly once);
-            requires ``kernel_temporal_block >= 2`` when it differs
-            from the state dtype; ``None`` matches the state dtype
-        :param kernel_temporal_block: RK4 steps a streaming tile
-            advances per HBM round-trip on beyond-VMEM grids (state
-            DMA traffic drops by this factor; per-step arithmetic is
-            unchanged). The actual block is the largest even divisor
-            of the solve's step count not exceeding this value
         :param spatial_mesh: an optional ``jax.sharding.Mesh`` over
             which :meth:`solve` partitions the *spatial* grid (domain
             decomposition). The whole compiled program — state, stencil
             evaluations, and the output trajectory — is sharded across
             the mesh's devices by XLA's SPMD partitioner, which inserts
-            the halo exchanges for the stencil shifts as ICI
+            the halo exchanges for the stencil shifts as
             collective-permutes; there is no separate "distributed"
             code path to keep in sync with the single-device math. The
             reference has no spatial scaling story at all (its
             parallelism is time-only, via MPI ranks —
             /root/reference/pararealml/operators/parareal/
             parareal_operator.py:102-197); this lifts both the compute
-            *and the HBM capacity* wall of a single chip, since each
+            *and the memory capacity* wall of a single device, since each
             device stores only its trajectory shard. Applies to
             :meth:`solve` only — ``trajectory_function`` (the Parareal
             sub-solve path) stays single-device, since it runs inside
@@ -141,11 +111,7 @@ class FDMOperator(JaxOperator):
         super().__init__(d_t, True)
         self._integrator = integrator
         self._differentiator = differentiator
-        self._fused_kernels = fused_kernels
         self._linear_propagator = linear_propagator
-        self._kernel_storage_dtype = kernel_storage_dtype
-        self._kernel_traj_dtype = kernel_traj_dtype
-        self._kernel_temporal_block = int(kernel_temporal_block)
         self._spatial_mesh = spatial_mesh
         self._spatial_partition = spatial_partition
         self._compiled_cache = {}
@@ -196,10 +162,6 @@ class FDMOperator(JaxOperator):
                 float(t[0]),
                 steps,
                 static_only=not dynamic,
-                # the hand-fused Pallas kernels are single-device
-                # programs; domain decomposition uses the generic path,
-                # which the SPMD partitioner can split
-                allow_fused=plan is None,
                 padded_shape=padded_shape,
             )
             if plan is None:
@@ -290,8 +252,8 @@ class FDMOperator(JaxOperator):
 
         Only the in/out shardings are annotated; XLA's SPMD partitioner
         propagates them through the whole ``lax.scan`` program and
-        inserts the stencil halo exchanges (collective-permutes over
-        ICI) on its own — the single-device and decomposed solves are
+        inserts the stencil halo exchanges (collective-permutes) on its
+        own — the single-device and decomposed solves are
         literally the same traced program.
         """
         mesh = self._spatial_mesh
@@ -307,7 +269,6 @@ class FDMOperator(JaxOperator):
         self,
         cp,
         t_interval,
-        allow_fused: bool = True,
         time_parallel: bool = False,
     ) -> Tuple[Callable, np.ndarray]:
         if (
@@ -325,7 +286,6 @@ class FDMOperator(JaxOperator):
             float(t[0]),
             steps,
             static_only=True,
-            allow_fused=allow_fused,
             time_parallel=time_parallel,
         )
         return trajectory, t[1:]
@@ -336,7 +296,6 @@ class FDMOperator(JaxOperator):
         t_0: float,
         slice_duration: float,
         n_slices: int,
-        allow_fused: bool = True,
     ) -> Callable:
         """A jittable ``fn(y_0, slice_index) -> ys`` solving one
         time slice of the decomposed domain ``[t_0, t_0 + n_slices *
@@ -368,7 +327,6 @@ class FDMOperator(JaxOperator):
             float(t_0),
             total_steps,
             static_only=not dynamic,
-            allow_fused=allow_fused and not dynamic,
         )
         d_t = self._d_t
         t_start = float(t_0)
@@ -425,7 +383,6 @@ class FDMOperator(JaxOperator):
             float(t_0),
             total_steps,
             static_only=not dynamic,
-            allow_fused=False,
         )
         d_t = self._d_t
         t_start = float(t_0)
@@ -444,15 +401,12 @@ class FDMOperator(JaxOperator):
             y_end, _ = jax.lax.scan(body, y_init, xs)
             return y_end
 
-        ends.vmappable = True
         return ends
 
     def ends_function(
         self,
         cp,
         t_interval,
-        allow_fused: bool = True,
-        batch: Optional[int] = None,
     ) -> Optional[Callable]:
         """A jittable ends-only solver ``fn(y_0, t_0) -> y_end`` for
         the interval — the counterpart of :meth:`trajectory_function`
@@ -463,16 +417,9 @@ class FDMOperator(JaxOperator):
         /root/reference/pararealml/operators/parareal/
         parareal_operator.py:163-185).
 
-        On the generic path the solve is a carry-only ``lax.scan`` —
-        per-step states are never stacked, so no ``(steps, *grid)``
-        trajectory buffer is written — and the returned function tags
-        itself ``vmappable`` (``batch`` is ignored; callers ``vmap``).
-        When a fused Pallas end kernel applies (and ``allow_fused``),
-        the state stays in VMEM for the whole solve with zero
-        trajectory DMA; ``batch=B`` builds the Pallas-grid batched
-        variant mapping ``(B, ...) -> (B, ...)`` sequentially in one
-        kernel (tagged ``batched``). Returns None for dynamic boundary
-        conditions.
+        The solve is a carry-only ``lax.scan``: per-step states are never
+        stacked, so no ``(steps, *grid)`` trajectory buffer is written.
+        Returns None for dynamic boundary conditions.
         """
         if (
             cp.differential_equation.x_dimension
@@ -482,24 +429,8 @@ class FDMOperator(JaxOperator):
         t = discretize_time_domain(t_interval, self._d_t)
         steps = len(t) - 1
 
-        if self._fused_kernels and allow_fused:
-            fused_end = self._build_fused_end_fn(cp, steps, batch)
-            if fused_end is not None:
-
-                def fused_ends(y_init, t_start=None):
-                    # the fused families are all autonomous systems
-                    # with static constraints, so the start time is
-                    # irrelevant (matching the fused trajectory
-                    # dispatch above)
-                    return fused_end(y_init)
-
-                fused_ends.vmappable = False
-                fused_ends.fused = True
-                fused_ends.batched = batch is not None
-                return fused_ends
-
         step_fn = self._build_step_function(
-            cp, float(t[0]), steps, static_only=True, allow_fused=False
+            cp, float(t[0]), steps, static_only=True
         )
         d_t = self._d_t
 
@@ -515,73 +446,7 @@ class FDMOperator(JaxOperator):
             y_end, _ = jax.lax.scan(body, y_init, xs)
             return y_end
 
-        ends.vmappable = True
-        ends.fused = False
-        ends.batched = False
         return ends
-
-    def _fused_anti_laplacian_compatible(self, cp) -> bool:
-        """The fused system kernels run the stream-function
-        anti-Laplacian as an in-kernel Jacobi loop; when the
-        differentiator is configured for a different anti-Laplacian
-        scheme, problems with a ``Y_LAPLACIAN`` equation must stay on
-        the generic path so the requested solver is actually used."""
-        if self._differentiator.anti_laplacian_method == "jacobi":
-            return True
-        eq_sys = cp.differential_equation.symbolic_equation_system
-        return not eq_sys.equation_indices_by_type(LHS.Y_LAPLACIAN)
-
-    def _build_fused_end_fn(
-        self, cp, steps: int, batch: Optional[int]
-    ) -> Optional[Callable]:
-        """The fused Pallas end kernel for this problem, or None when
-        no family applies (or the grid exceeds VMEM — the end builders
-        gate that themselves)."""
-        from pararealml_tpu.ops.fused_diffusion import (
-            build_fused_diffusion_rk4_end,
-            fused_diffusion_step_applicable,
-        )
-        from pararealml_tpu.ops.fused_system import (
-            build_fused_system_rk4_end,
-            fused_system_step_applicable,
-        )
-        from pararealml_tpu.ops.fused_system_3d import (
-            build_fused_system_3d_rk4_end,
-            fused_system_3d_step_applicable,
-        )
-
-        interpret = jax.default_backend() != "tpu"
-        if fused_diffusion_step_applicable(cp, self._integrator):
-            return build_fused_diffusion_rk4_end(
-                cp,
-                self._d_t,
-                steps,
-                interpret=interpret,
-                batch=batch,
-            )
-        if fused_system_step_applicable(
-            cp, self._integrator
-        ) and self._fused_anti_laplacian_compatible(cp):
-            return build_fused_system_rk4_end(
-                cp,
-                self._d_t,
-                steps,
-                interpret=interpret,
-                anti_laplacian_tol=self._differentiator._tol,
-                anti_laplacian_max_iterations=(
-                    self._differentiator._max_iterations
-                ),
-                batch=batch,
-            )
-        if fused_system_3d_step_applicable(cp, self._integrator):
-            return build_fused_system_3d_rk4_end(
-                cp,
-                self._d_t,
-                steps,
-                interpret=interpret,
-                batch=batch,
-            )
-        return None
 
     # -- step construction -------------------------------------------------
 
@@ -591,14 +456,12 @@ class FDMOperator(JaxOperator):
         t_0: float,
         steps: int,
         static_only: bool,
-        allow_fused: bool = True,
         time_parallel: bool = False,
         padded_shape: Optional[Tuple[int, ...]] = None,
     ) -> Callable:
         """Builds ``fn(y_0, t_0) -> ys`` for the whole trajectory: for
         parallel-in-time callers on linear problems, the affine
-        propagator matmul formulation; otherwise the fused multi-step
-        Pallas kernel when applicable, else a ``lax.scan`` over the
+        propagator matmul formulation; otherwise a ``lax.scan`` over the
         per-step function."""
         if (
             time_parallel
@@ -613,109 +476,19 @@ class FDMOperator(JaxOperator):
 
             if linear_propagator_applicable(cp, self._integrator):
                 step_fn = self._build_step_function(
-                    cp, t_0, steps, static_only=True, allow_fused=False
+                    cp, t_0, steps, static_only=True
                 )
                 y_shape = (
                     tuple(cp.y_shape(True))
                     if cp.differential_equation.x_dimension
                     else (cp.differential_equation.y_dimension,)
                 )
-                # the propagator trajectory tags itself vmappable
                 return build_linear_propagator_trajectory(
                     cp, step_fn, steps, y_shape
                 )
-        if (
-            self._fused_kernels
-            and allow_fused
-            and static_only
-            and padded_shape is None
-        ):
-            from pararealml_tpu.ops.fused_diffusion import (
-                build_fused_diffusion_rk4_trajectory,
-                fused_diffusion_step_applicable,
-            )
-            from pararealml_tpu.ops.fused_system import (
-                build_fused_system_rk4_trajectory,
-                fused_system_step_applicable,
-            )
-
-            from pararealml_tpu.ops.fused_system_3d import (
-                build_fused_system_3d_rk4_trajectory,
-                fused_system_3d_step_applicable,
-            )
-
-            if fused_diffusion_step_applicable(cp, self._integrator):
-                from pararealml_tpu.ops.tiled_diffusion import (
-                    resolve_temporal_block,
-                    takes_streaming_path,
-                )
-
-                temporal_block = resolve_temporal_block(
-                    cp,
-                    steps,
-                    self._kernel_temporal_block,
-                    storage_dtype=self._kernel_storage_dtype,
-                    traj_dtype=self._kernel_traj_dtype,
-                )
-                if (
-                    temporal_block == 1
-                    and self._kernel_traj_dtype is not None
-                    and self._kernel_traj_dtype
-                    != self._kernel_storage_dtype
-                    and takes_streaming_path(cp)
-                ):
-                    # a split snapshot dtype needs the blocked pipeline;
-                    # falling back to the state dtype silently would
-                    # yield differently-rounded trajectories per solve
-                    warnings.warn(
-                        f"kernel_traj_dtype={self._kernel_traj_dtype} "
-                        "dropped: no even temporal block <= "
-                        f"{self._kernel_temporal_block} divides this "
-                        f"solve's {steps} steps with a feasible tile "
-                        "plan, so snapshots keep the storage dtype",
-                        stacklevel=2,
-                    )
-                fused_trajectory = build_fused_diffusion_rk4_trajectory(
-                    cp,
-                    self._d_t,
-                    steps,
-                    interpret=jax.default_backend() != "tpu",
-                    storage_dtype=self._kernel_storage_dtype,
-                    traj_dtype=(
-                        self._kernel_traj_dtype
-                        if temporal_block > 1
-                        else self._kernel_storage_dtype
-                    ),
-                    temporal_block=temporal_block,
-                )
-                return lambda y_init, t_start: fused_trajectory(y_init)
-            if fused_system_step_applicable(
-                cp, self._integrator
-            ) and self._fused_anti_laplacian_compatible(cp):
-                fused_trajectory = build_fused_system_rk4_trajectory(
-                    cp,
-                    self._d_t,
-                    steps,
-                    interpret=jax.default_backend() != "tpu",
-                    anti_laplacian_tol=self._differentiator._tol,
-                    anti_laplacian_max_iterations=(
-                        self._differentiator._max_iterations
-                    ),
-                    storage_dtype=self._kernel_storage_dtype,
-                )
-                return lambda y_init, t_start: fused_trajectory(y_init)
-            if fused_system_3d_step_applicable(cp, self._integrator):
-                fused_trajectory = build_fused_system_3d_rk4_trajectory(
-                    cp,
-                    self._d_t,
-                    steps,
-                    interpret=jax.default_backend() != "tpu",
-                )
-                return lambda y_init, t_start: fused_trajectory(y_init)
-
         step_fn = self._build_step_function(
             cp, t_0, steps, static_only=static_only,
-            allow_fused=allow_fused, padded_shape=padded_shape,
+            padded_shape=padded_shape,
         )
         d_t = self._d_t
 
@@ -732,11 +505,6 @@ class FDMOperator(JaxOperator):
             _, ys = jax.lax.scan(body, y_init, xs)
             return ys
 
-        # reaching this point means no fused trajectory kernel applied
-        # (the step-level applicability checks are the same predicates,
-        # so the scanned step is the pure-jnp generic one), and the
-        # generic scan is safe to transform with vmap
-        trajectory.vmappable = True
         return trajectory
 
     def _build_step_function(
@@ -745,7 +513,6 @@ class FDMOperator(JaxOperator):
         t_0: float,
         steps: int,
         static_only: bool,
-        allow_fused: bool = True,
         padded_shape: Optional[Tuple[int, ...]] = None,
     ) -> Callable:
         """Builds ``step(y, i, t_i) -> y_next`` for one time step, with
@@ -757,58 +524,6 @@ class FDMOperator(JaxOperator):
         reshaped through :mod:`pararealml_tpu.operators.fdm.padded_grid`
         so real vertices evolve identically to the unpadded program.
         """
-        if (
-            self._fused_kernels
-            and allow_fused
-            and static_only
-            and padded_shape is None
-        ):
-            from pararealml_tpu.ops.fused_diffusion import (
-                build_fused_diffusion_rk4_step,
-                fused_diffusion_step_applicable,
-            )
-            from pararealml_tpu.ops.fused_system import (
-                build_fused_system_rk4_step,
-                fused_system_step_applicable,
-            )
-
-            from pararealml_tpu.ops.fused_system_3d import (
-                build_fused_system_3d_rk4_step,
-                fused_system_3d_step_applicable,
-            )
-
-            fused_step = None
-            if fused_diffusion_step_applicable(cp, self._integrator):
-                fused_step = build_fused_diffusion_rk4_step(
-                    cp,
-                    self._d_t,
-                    interpret=jax.default_backend() != "tpu",
-                )
-            elif fused_system_step_applicable(
-                cp, self._integrator
-            ) and self._fused_anti_laplacian_compatible(cp):
-                fused_step = build_fused_system_rk4_step(
-                    cp,
-                    self._d_t,
-                    interpret=jax.default_backend() != "tpu",
-                    anti_laplacian_tol=self._differentiator._tol,
-                    anti_laplacian_max_iterations=(
-                        self._differentiator._max_iterations
-                    ),
-                )
-            elif fused_system_3d_step_applicable(cp, self._integrator):
-                fused_step = build_fused_system_3d_rk4_step(
-                    cp,
-                    self._d_t,
-                    interpret=jax.default_backend() != "tpu",
-                )
-            if fused_step is not None:
-
-                def step_fused(y, i, t_i, _fused=fused_step):
-                    return _fused(y)
-
-                return step_fused
-
         differentiator = self._differentiator
         pad_tree = None
         if padded_shape is not None:

@@ -7,7 +7,7 @@ constraint-aware boundary handling, the full vector-calculus suite
 Cartesian, polar, cylindrical and spherical coordinates, and a Jacobi
 anti-Laplacian solver.
 
-TPU-native design: every operation is a pure function of dense arrays —
+Array-native design: every operation is a pure function of dense arrays —
 halos come from ``jnp.pad``-style concatenation, Neumann ghost vertices
 are synthesized with masked selects from dense
 :class:`~pararealml_tpu.constraint.Constraint` tensors, and the Jacobi
@@ -872,9 +872,7 @@ class FivePointCentralDifferenceMethod(NumericalDifferentiator):
 
     The full coordinate-system-aware vector calculus of the base class
     (gradient through vector Laplacian, all four coordinate systems)
-    rides on these primitives unchanged. The hand-fused Pallas kernels
-    implement the three-point discretization only, so solves with this
-    differentiator always run on the generic XLA path.
+    rides on these primitives unchanged.
     """
 
     # boundary halos are synthesized exactly as in the three-point

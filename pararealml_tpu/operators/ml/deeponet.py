@@ -7,7 +7,7 @@ https://arxiv.org/abs/1910.03193 for the vanilla architecture). The
 reference builds on Keras; here the model is a Flax ``linen`` module —
 a pure function of its parameters — so it can be jitted, vmapped,
 differentiated for physics-informed training, and rolled out inside
-``lax.scan`` for auto-regressive inference on TPU.
+``lax.scan`` for auto-regressive inference on the device.
 """
 
 from __future__ import annotations

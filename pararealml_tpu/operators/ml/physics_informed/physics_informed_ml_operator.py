@@ -189,7 +189,7 @@ class PhysicsInformedMLOperator(JaxOperator):
         )
 
     def trajectory_function(
-        self, cp, t_interval, allow_fused=True, time_parallel=False
+        self, cp, t_interval, time_parallel=False
     ):
         """A pure jittable roll-out of the trained model over the time
         grid."""
@@ -234,18 +234,14 @@ class PhysicsInformedMLOperator(JaxOperator):
 
         return trajectory, t[1:]
 
-    def ends_function(
-        self, cp, t_interval, allow_fused=True, batch=None
-    ):
+    def ends_function(self, cp, t_interval):
         """The carry-only counterpart of :meth:`trajectory_function`:
         ``fn(y_0, t_0) -> y_end`` without stacking per-step
         predictions, for consumers that need only end states —
         Parareal's correction iterations with a physics-informed
         coarse operator (the reference likewise discards slice
         interiors, /root/reference/pararealml/operators/parareal/
-        parareal_operator.py:163-185). ``batch`` is accepted for
-        interface parity and ignored (the roll-out is freely
-        vmappable)."""
+        parareal_operator.py:163-185)."""
         if self._model is None or self._model.params is None:
             raise ValueError("operator has no trained model")
         model = self._model
@@ -289,9 +285,6 @@ class PhysicsInformedMLOperator(JaxOperator):
             last, _ = jax.lax.scan(step, u_0, t_offsets)
             return last.reshape(y_shape)
 
-        ends.vmappable = True
-        ends.fused = False
-        ends.batched = False
         return ends
 
     # -- training ----------------------------------------------------------
@@ -443,8 +436,7 @@ class PhysicsInformedMLOperator(JaxOperator):
             """A whole block of epochs (leading epoch axis on every
             ``stacked_block`` leaf) as one compiled program: one
             dispatch and one host sync per block instead of per epoch,
-            which dominates wall time when the host<->device link is a
-            high-latency tunnel."""
+            which dominates wall time when epochs are short."""
 
             def epoch(carry, stacked):
                 params, opt_state = carry

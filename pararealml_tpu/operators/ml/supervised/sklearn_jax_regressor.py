@@ -78,8 +78,8 @@ class SKLearnJaxRegressor(RegressorMixin, BaseEstimator):
             training program is the same traced code as the
             single-device one. ``batch_size`` must be divisible by the
             mesh's device count. The reference trains on a single GPU
-            (sklearn_keras_regressor.py); this is TPU-first headroom
-            for oracle datasets and surrogates too large for one chip.
+            (sklearn_keras_regressor.py); this is headroom for
+            oracle datasets and surrogates too large for one device.
         :param build_args: parameters passed through to ``build_fn``
         """
         self.build_fn = build_fn

@@ -5,7 +5,7 @@ regressor (/root/reference/pararealml/operators/ml/supervised/
 supervised_ml_operator.py:238-284 calls plain ``fit``/``predict``/
 ``score``; its Keras wrapper exists to give neural nets that protocol,
 sklearn_keras_regressor.py:13-214). This module supplies the protocol's
-classical baseline as a first-class TPU-native model: a ridge
+classical baseline as a first-class JAX-native model: a ridge
 least-squares fit of the affine map ``y_{t+d_t} = W y_t + w0`` over the
 *whole flattened state*.
 
@@ -18,7 +18,7 @@ map's rank by its feature width. This regressor instead reconstructs
 the state pairs from the layout and fits the full-rank operator in one
 normal-equations solve — for linear PDEs (diffusion et al.) the true
 slice-jump map IS affine, so the fit is exact up to data conditioning,
-and inference is a single ``(state, state)`` matvec that rides the MXU.
+and inference is a single ``(state, state)`` matvec.
 Composed as a Parareal coarse operator, the affine map is consumed
 directly by the log-depth doubling-scan machinery
 (:mod:`pararealml_tpu.ops.linear_propagator`), keeping the entire
@@ -34,7 +34,7 @@ PDE whose flow map is not affine): it keeps the full-rank linear term
 ``A y`` and adds a quadratic term evaluated in a POD-reduced subspace
 of the training states, ``B q((y - mean) V)``, so the feature count
 stays ``O(state + rank^2)`` instead of ``O(state^2)`` and both fit and
-inference remain dense matmuls on the MXU. This is the second-order
+inference remain dense matmuls. This is the second-order
 Taylor expansion of the flow map around the training manifold, learned
 by ridge regression instead of derived — exactly the role the
 reference assigns to its Keras regressors as Parareal coarse operators
@@ -250,7 +250,7 @@ class ReducedQuadraticStateOperatorRegressor(
     actually explores, so the feature count is ``state + rank^2 / 2``
     instead of the intractable full ``state^2``. Everything is fitted
     in one float64 normal-equations solve and applied as two dense
-    matmuls — the same MXU-friendly shape as the affine fit, now valid
+    matmuls — the same matmul-friendly shape as the affine fit, now valid
     for nonlinear problems (Burgers et al.) where the reference reaches
     for trained Keras surrogates
     (/root/reference/pararealml/operators/ml/supervised/
@@ -311,10 +311,9 @@ class ReducedQuadraticStateOperatorRegressor(
         off-diagonal weights split evenly between the two symmetric
         outer entries. The triangular form stays the persisted/fitted
         representation; the full form exists because evaluating
-        ``z[:, rows] * z[:, cols]`` is a 528-element GATHER that
-        dominates a serial Parareal coarse sweep on TPU (measured ~129
-        us per apply at rank 32), while ``outer(z, z).reshape(-1)`` is
-        one broadcast multiply."""
+        ``z[:, rows] * z[:, cols]`` is a gather (528 elements at rank
+        32) on the serial Parareal coarse sweep, while
+        ``outer(z, z).reshape(-1)`` is one broadcast multiply."""
         rows, cols = self._triu_indices
         weights = np.asarray(self._quad_weights, np.float64)
         full = np.zeros(
@@ -399,19 +398,17 @@ class ReducedQuadraticStateOperatorRegressor(
         """Low-rank SVD factors of an operator matrix, or ``None`` when
         truncation at the tolerance saves nothing. Applying the fitted
         map to ONE state (a Parareal coarse sweep is n dependent
-        single-state applies) is MXU-latency-bound: a ``(1, k) @
-        (k, m)`` matvec costs ``ceil(k/128) * ceil(m/128)`` systolic
-        tile passes regardless of the single row, so splitting ``W``
-        into ``(k, r) @ (r, m)`` factors cuts the passes — and the
-        serial sweep's wall time — by ``~min(k, m) / (2 r)``. The
+        single-state applies) reads the whole ``(k, m)`` matrix per
+        apply, so splitting ``W`` into ``(k, r) @ (r, m)`` factors cuts
+        the bytes read — and the serial sweep's wall time — by
+        ``~min(k, m) / (2 r)``. The
         truncation tail is bounded by ``max_rel_error * sigma_0``,
         placed well under float32 matmul noise by default."""
         m64 = np.asarray(matrix, np.float64)
         u, sigma, vt = np.linalg.svd(m64, full_matrices=False)
         if sigma[0] == 0.0:
             return None
-        r = int(np.sum(sigma > sigma[0] * max_rel_error))
-        r = -(-max(1, r) // 128) * 128  # MXU lane alignment
+        r = max(1, int(np.sum(sigma > sigma[0] * max_rel_error)))
         n_out, n_in = m64.shape
         if r * (n_out + n_in) >= n_out * n_in:
             return None

@@ -8,7 +8,7 @@ time-variant / input-d_t modes, perturbation-based data generation
 fitting with train/test splitting, and auto-regressive roll-out
 inference.
 
-TPU-native redesign of the parallelism: the reference fans data
+JAX-native redesign of the parallelism: the reference fans data
 generation out over ``multiprocessing`` workers (P2 in SURVEY.md §2);
 here, when the oracle is a :class:`JaxOperator` on static-BC problems,
 the perturbed solves of *all* iterations are batched through ``jax.vmap``
@@ -158,7 +158,7 @@ class SupervisedMLOperator(JaxOperator):
         step_map = getattr(self._model, "jax_step_map", None)
         if step_map is not None:
             # the fitted operator is the step map itself: dense
-            # matmuls on the MXU (affine fits additionally pass
+            # matmuls (affine fits additionally pass
             # Parareal's linear-propagator probe, collapsing the
             # coarse sweeps to log-depth doubling scans)
             y_shape = tuple(cp.y_shape(self._vertex_oriented))
@@ -219,7 +219,7 @@ class SupervisedMLOperator(JaxOperator):
         return apply_model, y_shape
 
     def trajectory_function(
-        self, cp, t_interval, allow_fused=True, time_parallel=False
+        self, cp, t_interval, time_parallel=False
     ):
         """A pure jittable roll-out of the trained network over the time
         grid (requires an :class:`SKLearnJaxRegressor` model)."""
@@ -238,7 +238,7 @@ class SupervisedMLOperator(JaxOperator):
             # problems applies verbatim: probe (P, r) once at build
             # time, expose the composed slice map, and Parareal's
             # coarse sweeps collapse to log-depth doubling scans of
-            # MXU matmuls instead of n dependent network roll-outs.
+            # matmuls instead of n dependent network roll-outs.
             # Nonlinear surrogates fail the probe's affinity
             # verification and keep the scan roll-out below.
             from pararealml_tpu.ops.linear_propagator import (
@@ -283,9 +283,7 @@ class SupervisedMLOperator(JaxOperator):
 
         return trajectory, t[1:]
 
-    def ends_function(
-        self, cp, t_interval, allow_fused=True, batch=None
-    ):
+    def ends_function(self, cp, t_interval):
         """The carry-only counterpart of :meth:`trajectory_function`:
         a jittable ``fn(y_0, t_0) -> y_end`` that never stacks per-step
         predictions. Parareal's correction iterations consume only
@@ -296,8 +294,7 @@ class SupervisedMLOperator(JaxOperator):
         a ``(steps, *grid)`` trajectory per sub-solve. (Affine
         surrogates take the propagator path in
         :meth:`trajectory_function`, whose ``end_function`` Parareal
-        prefers outright; ``batch`` is accepted for interface parity
-        and ignored — the scan is freely vmappable.)"""
+        prefers outright.)"""
         apply_model, y_shape = self._build_apply_model(cp)
         t = discretize_time_domain(t_interval, self._d_t)
         t_offsets = jnp.asarray(t[1:] - t[0])
@@ -323,9 +320,6 @@ class SupervisedMLOperator(JaxOperator):
             )
             return last_carry.reshape(y_shape)
 
-        ends.vmappable = True
-        ends.fused = False
-        ends.batched = False
         return ends
 
     @staticmethod
@@ -816,10 +810,9 @@ class SupervisedMLOperator(JaxOperator):
             return np.stack(perturbed)
 
         if self._auto_regressive:
-            # the step function is vmapped over perturbation batches, so
-            # request a vmap-compatible (non-fused) trajectory
+            # the step function is vmapped over perturbation batches
             step_fn, _ = oracle.trajectory_function(
-                cp, (t[0], t[0] + self._d_t), allow_fused=False
+                cp, (t[0], t[0] + self._d_t)
             )
             batched_end = jax.jit(
                 jax.vmap(
@@ -871,7 +864,7 @@ class SupervisedMLOperator(JaxOperator):
                     states = ends
         else:
             trajectory_fn, _ = oracle.trajectory_function(
-                cp, (t[0], t[-1]), allow_fused=False
+                cp, (t[0], t[-1])
             )
             batched_trajectory = jax.jit(
                 jax.vmap(trajectory_fn, in_axes=(0, None)),

@@ -5,7 +5,7 @@ ode_operator.py:12-85, which delegates to SciPy's ``solve_ivp``. Here the
 whole adaptive Runge-Kutta integration — embedded error estimation,
 PI-style step-size control, dense-output interpolation onto the output
 grid — is a single ``lax.while_loop`` program compiled by XLA, so it runs
-on TPU with no host round-trips and can be nested inside larger compiled
+on the device with no host round-trips and can be nested inside larger compiled
 programs (e.g. the ``shard_map`` Parareal).
 
 Supported methods: adaptive explicit ``"RK45"`` (Dormand-Prince 5(4)
@@ -26,8 +26,8 @@ from typing import Callable, NamedTuple, Optional, Tuple, Union
 import jax
 import jax.numpy as jnp
 import numpy as np
-import sympy as sp
 
+from pararealml_tpu.expression import compile_expressions
 from pararealml_tpu.initial_value_problem import InitialValueProblem
 from pararealml_tpu.operator import JaxOperator, discretize_time_domain
 from pararealml_tpu.solution import Solution
@@ -38,7 +38,7 @@ class RKTableau(NamedTuple):
     dense-output interpolation matrix.
 
     Users may pass an instance directly as :class:`ODEOperator`'s
-    ``method`` to integrate with custom coefficients — the TPU-native
+    ``method`` to integrate with custom coefficients — the JAX-native
     counterpart of the reference's acceptance of custom SciPy
     ``OdeSolver`` classes (/root/reference/pararealml/operators/ode/
     ode_operator.py:17-44). ``a``, ``b``, ``c`` are the standard Butcher
@@ -1410,7 +1410,7 @@ def _build_lsoda_integrator(
     stiffness_threshold: float = 2000.0,
 ):
     """Builds a jit-traceable integrator with automatic stiff/non-stiff
-    method selection — the TPU-native counterpart of the reference's
+    method selection — the JAX-native counterpart of the reference's
     ``"LSODA"`` pass-through to SciPy (/root/reference/pararealml/
     operators/ode/ode_operator.py:17-44).
 
@@ -1626,12 +1626,12 @@ class ODEOperator(JaxOperator):
     def _make_rhs_function(self, diff_eq) -> Callable:
         sym = diff_eq.symbols
         rhs = diff_eq.symbolic_equation_system.rhs
-        rhs_lambda = sp.lambdify([sym.t, sym.y], rhs, "jax")
+        symbols = [sym.t, *sym.y]
+        rhs_lambda = compile_expressions(rhs, symbols)
 
         def d_y_over_d_t(t, y):
-            return jnp.stack(
-                [jnp.asarray(v, y.dtype) for v in rhs_lambda(t, y)]
-            )
+            values = rhs_lambda([t, *(y[i] for i in range(len(sym.y)))])
+            return jnp.stack([jnp.asarray(v, y.dtype) for v in values])
 
         return d_y_over_d_t
 
@@ -1639,7 +1639,6 @@ class ODEOperator(JaxOperator):
         self,
         cp,
         t_interval,
-        allow_fused: bool = True,
         time_parallel: bool = False,
     ) -> Tuple[Callable, np.ndarray]:
         diff_eq = cp.differential_equation

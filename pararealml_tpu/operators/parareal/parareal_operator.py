@@ -1,16 +1,17 @@
 """Parallel-in-time solving with the Parareal algorithm on a device mesh.
 
 Capability match for /root/reference/pararealml/operators/parareal/
-parareal_operator.py:13-197, re-architected for TPU. The reference runs
-one MPI rank per time slice and exchanges dense corrections with
-``Allgather``; here the whole algorithm — initial coarse sweep, parallel
-fine solves, correction ``all_gather``, replicated serial corrective
-sweep, masked early termination — is **one jitted ``shard_map`` program**
-over a 1D ``time`` axis of a ``jax.sharding.Mesh``. The fine solves are
-the only sharded (per-device) work; the coarse sweeps are replicated on
-every device exactly like the reference replicates them on every rank
+parareal_operator.py:13-197, re-architected for accelerators. The
+reference runs one MPI rank per time slice and exchanges dense
+corrections with ``Allgather``; here the whole algorithm — initial
+coarse sweep, parallel fine solves, correction ``all_gather``,
+replicated serial corrective sweep, masked early termination — is **one
+jitted ``shard_map`` program** over a 1D ``time`` axis of a
+``jax.sharding.Mesh``. The fine solves are the only sharded (per-device)
+work; the coarse sweeps are replicated on every device exactly like the
+reference replicates them on every rank
 (no communication needed); the only collective is one ``all_gather`` of
-the per-slice corrections per iteration, riding ICI.
+the per-slice corrections per iteration.
 
 Early termination inside jit uses the reference's criterion (the maximum
 per-component RMS of the border-point updates dropping below the
@@ -27,10 +28,7 @@ relaxation: corrections are computed from fine-propagated states, so
 exactness advances two time slices per iteration for one extra (equally
 parallel) fine solve plus ``n`` parallel per-slice coarse solves per
 iteration — fewer sequential coarse sweeps on the critical path when
-fine solves are cheap relative to the sweep. Note that FCF's per-slice
-coarse solves run on the vmappable generic path when slices are batched
-per device, so its per-iteration cost exceeds classic Parareal's by
-more than the extra fine solve alone.
+fine solves are cheap relative to the sweep.
 """
 
 from __future__ import annotations
@@ -42,7 +40,6 @@ from typing import Callable, Optional, Sequence, Union
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental.shard_map import shard_map
 from jax.sharding import PartitionSpec as P
 
 from pararealml_tpu.initial_condition import DiscreteInitialCondition
@@ -94,16 +91,6 @@ class PararealOperator(JaxOperator):
     # fine solves
     _TIME_PARALLEL_TOLERANCE_FLOOR = 1e-5
 
-    # vmap-batched sub-solves ride otherwise-idle vector lanes nearly
-    # for free on small grids (measured: 200 batched 21x21 fine solves
-    # cost about one generic solve), so the generic path wins there;
-    # past roughly 128x128 grid points a single generic step already
-    # saturates the VPU, batching scales linearly with the batch size,
-    # and the hand-fused kernels' measured 2.5-20x per-solve advantage
-    # dominates even though the Pallas batch grid advances slices
-    # sequentially
-    _SEQUENTIAL_FUSED_MIN_GRID_POINTS = 128 * 128
-
     def __init__(
         self,
         f: Operator,
@@ -135,9 +122,8 @@ class PararealOperator(JaxOperator):
             state ``F(u_{j-1})`` instead of ``u_j``, so exactness
             advances two slices per iteration at the cost of a second
             (equally parallel) fine solve plus ``n`` parallel
-            per-slice coarse solves per iteration (which run on the
-            generic, non-fused path when slices are vmap-batched per
-            device). Beyond the reference, which only implements
+            per-slice coarse solves per iteration. Beyond the reference,
+            which only implements
             classic Parareal.
         :param materialize: when and from which borders the returned
             fine trajectories are computed. ``"final"`` (default) runs
@@ -238,19 +224,6 @@ class PararealOperator(JaxOperator):
             if np.isfinite(scale):
                 floor = floor * max(1.0, scale)
         return bool(np.all(tolerances > floor))
-
-    def _prefer_sequential_fused(self, cp) -> bool:
-        """Whether vmap-batched sub-solves should instead run hand-fused
-        kernels sequentially over the slice batch (Pallas batch grids
-        for end states, ``lax.map`` for the final trajectories) — the
-        grid-size heuristic documented at
-        ``_SEQUENTIAL_FUSED_MIN_GRID_POINTS``."""
-        if not cp.differential_equation.x_dimension:
-            return False
-        return (
-            int(np.prod(cp.mesh.vertices_shape))
-            >= self._SEQUENTIAL_FUSED_MIN_GRID_POINTS
-        )
 
     def _should_terminate(
         self, old_y_end_points: np.ndarray, new_y_end_points: np.ndarray
@@ -527,8 +500,6 @@ class PararealOperator(JaxOperator):
         self, cp, n: int, slice_duration: float, y_0,
         t_start: Optional[float] = None,
     ):
-        n_devices_for_build = self._mesh_device_count(n)
-        needs_vmap = n // n_devices_for_build > 1
         delta = float(slice_duration)
         # across hosts the time-sharded output is not addressable from
         # any single process; replicate it like the reference's final
@@ -538,23 +509,12 @@ class PararealOperator(JaxOperator):
         if t_start is not None:
             # dynamic boundary conditions: slice-indexed trajectory
             # functions over constraints pre-evaluated on the whole
-            # domain's half-step grid. Only the fine solves are vmapped
-            # (batched per device), so only they need the
-            # vmap-compatible generic path; coarse sweeps run in
-            # scans and keep their fused kernels.
+            # domain's half-step grid
             fine_ifn = self._f.indexed_trajectory_function(
-                cp, t_start, slice_duration, n,
-                allow_fused=not needs_vmap,
+                cp, t_start, slice_duration, n
             )
             coarse_ifn = self._g.indexed_trajectory_function(
                 cp, t_start, slice_duration, n
-            )
-            coarse_ifn_vmappable = (
-                coarse_ifn
-                if not needs_vmap
-                else self._g.indexed_trajectory_function(
-                    cp, t_start, slice_duration, n, allow_fused=False
-                )
             )
 
             def fine_call(y_start, slice_index, t_0):
@@ -563,13 +523,10 @@ class PararealOperator(JaxOperator):
             def coarse_call(y_start, slice_index, t_0):
                 return coarse_ifn(y_start, slice_index)
 
-            def coarse_call_vmappable(y_start, slice_index, t_0):
-                return coarse_ifn_vmappable(y_start, slice_index)
-
             # carry-only indexed ends (never stack per-step states)
-            # where the operators expose them; dynamic-BC problems
-            # have no fused kernels, so these are bit-identical to
-            # "expand the trajectory, keep the last frame"
+            # where the operators expose them; these are
+            # bit-identical to "expand the trajectory, keep the last
+            # frame"
             def build_indexed_ends(operator):
                 builder = getattr(
                     operator, "indexed_ends_function", None
@@ -586,62 +543,33 @@ class PararealOperator(JaxOperator):
                     return coarse_iends(y_start, slice_index)
                 return coarse_call(y_start, slice_index, t_0)[-1]
 
-            def coarse_end_call_vmappable(y_start, slice_index, t_0):
-                if coarse_iends is not None:
-                    return coarse_iends(y_start, slice_index)
-                return coarse_call_vmappable(
-                    y_start, slice_index, t_0
-                )[-1]
-
             def fine_end_call(y_start, slice_index, t_0):
                 if fine_iends is not None:
                     return fine_iends(y_start, slice_index)
                 return fine_call(y_start, slice_index, t_0)[-1]
-
-            # fused batched/sequential/packed sub-solves apply only to
-            # the static-BC branch below
-            fine_ends_batched = None
-            coarse_ends_batched = None
-            fine_traj_sequential = None
-            fine_traj_batched = None
 
         else:
             time_parallel = self._use_time_parallel_trajectories(
                 cp, y_0
             )
 
-            def build_trajectory(operator, allow_fused):
+            def build_trajectory(operator):
                 # the sub-trajectory functions take the absolute slice
                 # start time as a traced argument, so the interval here
                 # only fixes the duration. ``time_parallel=True`` lets
                 # operators use trajectory formulations built for
                 # parallel-in-time composition (affine propagator
-                # matmuls on linear problems), which are also freely
-                # vmappable; it is gated on the termination tolerance
-                # (see _TIME_PARALLEL_TOLERANCE_FLOOR).
+                # matmuls on linear problems); it is gated on the
+                # termination tolerance (see
+                # _TIME_PARALLEL_TOLERANCE_FLOOR).
                 return operator.trajectory_function(
                     cp,
                     (0.0, slice_duration),
-                    allow_fused=allow_fused,
                     time_parallel=time_parallel,
                 )[0]
 
-            # hand-fused Pallas kernels (DMA + scratch) do not support
-            # vmap batching; when slices are batched per device, any
-            # non-vmappable fine/coarse trajectory is rebuilt on the
-            # generic path (trajectories tag themselves via the
-            # ``vmappable`` attribute)
-            fine_fn_fused = build_trajectory(self._f, allow_fused=True)
-            fine_fn = fine_fn_fused
-            if needs_vmap and not getattr(fine_fn, "vmappable", False):
-                fine_fn = build_trajectory(self._f, allow_fused=False)
-            coarse_fn = build_trajectory(self._g, allow_fused=True)
-            coarse_fn_vmappable = (
-                coarse_fn
-                if not needs_vmap
-                or getattr(coarse_fn, "vmappable", False)
-                else build_trajectory(self._g, allow_fused=False)
-            )
+            fine_fn = build_trajectory(self._f)
+            coarse_fn = build_trajectory(self._g)
 
             def fine_call(y_start, slice_index, t_0):
                 return fine_fn(y_start, t_0 + slice_index * delta)
@@ -649,61 +577,31 @@ class PararealOperator(JaxOperator):
             def coarse_call(y_start, slice_index, t_0):
                 return coarse_fn(y_start, t_0 + slice_index * delta)
 
-            def coarse_call_vmappable(y_start, slice_index, t_0):
-                return coarse_fn_vmappable(
-                    y_start, t_0 + slice_index * delta
-                )
-
             # trajectories that expose an ``end_function`` (affine
             # propagators) let the sequential corrective sweep advance
             # a slice with one matvec instead of expanding and
             # discarding the slice's interior
             _end = getattr(coarse_fn, "end_function", None)
-            _end_vmappable = getattr(
-                coarse_fn_vmappable, "end_function", None
-            )
             _fine_end = getattr(fine_fn, "end_function", None)
 
             # operators exposing an ``ends_function`` (FDMOperator)
             # replace "expand the slice trajectory, keep the last
-            # frame" everywhere only end states are consumed: the
-            # fused variants keep the state in VMEM for the whole
-            # sub-solve with zero trajectory DMA, and the generic
-            # variant is a carry-only scan that never stacks per-step
-            # states. Affine-propagator ends still win outright
-            # (O(log steps) matvecs).
-            def build_ends(operator, batch=None, allow_fused=True):
+            # frame" everywhere only end states are consumed: a
+            # carry-only scan that never stacks per-step states.
+            # Affine-propagator ends still win outright (O(log steps)
+            # matvecs).
+            def build_ends(operator):
                 builder = getattr(operator, "ends_function", None)
                 if builder is None:
                     return None
-                return builder(
-                    cp,
-                    (0.0, slice_duration),
-                    allow_fused=allow_fused,
-                    batch=batch,
-                )
+                return builder(cp, (0.0, slice_duration))
 
-            # when slices are vmap-batched, fine_end_call runs under
-            # vmap, which cannot transform fused Pallas kernels — the
-            # fused fine ends enter through the batched kernel below
             fine_ends_fn = (
-                None
-                if _fine_end is not None
-                else build_ends(self._f, allow_fused=not needs_vmap)
+                None if _fine_end is not None else build_ends(self._f)
             )
             coarse_ends_fn = (
                 None if _end is not None else build_ends(self._g)
             )
-            if (
-                needs_vmap
-                and coarse_ends_fn is not None
-                and not getattr(coarse_ends_fn, "vmappable", False)
-            ):
-                coarse_ends_vmappable_fn = build_ends(
-                    self._g, allow_fused=False
-                )
-            else:
-                coarse_ends_vmappable_fn = coarse_ends_fn
 
             def fine_end_call(y_start, slice_index, t_0):
                 if _fine_end is not None:
@@ -722,97 +620,6 @@ class PararealOperator(JaxOperator):
                         y_start, t_0 + slice_index * delta
                     )
                 return coarse_call(y_start, slice_index, t_0)[-1]
-
-            def coarse_end_call_vmappable(y_start, slice_index, t_0):
-                if _end_vmappable is not None:
-                    return _end_vmappable(
-                        y_start, t_0 + slice_index * delta
-                    )
-                if coarse_ends_vmappable_fn is not None:
-                    return coarse_ends_vmappable_fn(
-                        y_start, t_0 + slice_index * delta
-                    )
-                return coarse_call_vmappable(
-                    y_start, slice_index, t_0
-                )[-1]
-
-            # when slices are vmap-batched per device on a grid past
-            # the lane-saturation threshold, run fused kernels
-            # SEQUENTIALLY over the batch instead of vmapping the
-            # generic path: batch=B builds the Pallas-grid batched end
-            # kernel (bit-identical to B single calls — tested), and
-            # the final trajectory materialization lax.maps the fused
-            # trajectory kernel
-            fine_ends_batched = None
-            coarse_ends_batched = None
-            fine_traj_sequential = None
-            fine_traj_batched = None
-            if needs_vmap and self._prefer_sequential_fused(cp):
-                batch = n // n_devices_for_build
-                if _fine_end is None:
-                    cand = build_ends(self._f, batch=batch)
-                    if cand is not None and getattr(
-                        cand, "batched", False
-                    ):
-                        fine_ends_batched = cand
-                if self._relaxation == "fcf" and _end_vmappable is None:
-                    cand = build_ends(self._g, batch=batch)
-                    if cand is not None and getattr(
-                        cand, "batched", False
-                    ):
-                        coarse_ends_batched = cand
-                if fine_fn is not fine_fn_fused:
-                    # rebuilt generic above means the fused trajectory
-                    # kernel exists and cannot be vmapped; lax.map it
-                    fine_traj_sequential = fine_fn_fused
-            elif (
-                needs_vmap
-                and _fine_end is None
-                and getattr(self._f, "_fused_kernels", False)
-                and hasattr(self._f, "_integrator")
-            ):
-                # grids BELOW the lane-saturation threshold: a single
-                # slice fills a fraction of one VPU tile, so both the
-                # vmapped generic path and the Pallas batch *grid*
-                # waste the vector unit. The width-PACKED kernels run
-                # the whole slice batch side by side along the lane
-                # axis in one program (ops/packed_system.py), covering
-                # the per-iteration ends and the final trajectory
-                # materialization alike
-                from pararealml_tpu.ops.packed_system import (
-                    build_packed_system_rk4_ends,
-                    build_packed_system_rk4_trajectory,
-                    packed_system_applicable,
-                )
-
-                batch = n // n_devices_for_build
-                if packed_system_applicable(
-                    cp, self._f._integrator, batch
-                ):
-                    interpret = jax.default_backend() != "tpu"
-                    fine_ends_batched = build_packed_system_rk4_ends(
-                        cp,
-                        self._f.d_t,
-                        self._fine_steps(slice_duration),
-                        batch,
-                        interpret=interpret,
-                    )
-                    fine_traj_batched = (
-                        build_packed_system_rk4_trajectory(
-                            cp,
-                            self._f.d_t,
-                            self._fine_steps(slice_duration),
-                            batch,
-                            interpret=interpret,
-                            # the fine operator's snapshot-precision
-                            # knob carries over: rounding applies to
-                            # the STORED frames only (the final border
-                            # shift re-anchors slice ends on the
-                            # full-precision corrected borders either
-                            # way)
-                            traj_dtype=self._f._kernel_traj_dtype,
-                        )
-                    )
 
         n_devices = self._mesh_device_count(n)
         slices_per_device = n // n_devices
@@ -837,7 +644,7 @@ class PararealOperator(JaxOperator):
         # y_{j+1} = P y_j + (r + correction_j) (and the initial sweep,
         # its corrections-free special case) is a Hillis-Steele
         # doubling scan whose levels are single (n, dim) x (dim, dim)
-        # MXU matmuls against precomputed P^(2^l) — ceil(log2(n))
+        # matmuls against precomputed P^(2^l) — ceil(log2(n))
         # dependent ops instead of n dependent per-slice coarse solves
         # on the iteration's serial critical path. The reference runs
         # this sweep strictly sequentially on every rank
@@ -923,101 +730,29 @@ class PararealOperator(JaxOperator):
                     )
                     return ends.reshape(y_starts.shape)
 
-        if self._relaxation == "fcf":
-            # FCF corrections are computed with the vmappable coarse
-            # path; the sweeps must use the *same* propagator or its
-            # fused-vs-generic rounding difference leaks into borders
-            # the schedule treats as exact. With a batched fused coarse
-            # end kernel in the corrections, the sweeps use the
-            # UNBATCHED fused end kernel — bit-identical to the batched
-            # one by construction (tested)
-            coarse_end = (
-                coarse_end_call
-                if coarse_ends_batched is not None
-                else coarse_end_call_vmappable
-            )
-        else:
-            coarse_end = coarse_end_call
-
         fine_steps = self._fine_steps(slice_duration)
-        if slices_per_device == 1:
-            # one slice per device: no batching, so fused Pallas fine
-            # solvers stay usable
-            def batched_fine(y_starts, slice_indices, t_0):
-                return fine_call(
-                    y_starts[0], slice_indices[0], t_0
-                )[jnp.newaxis]
+        # each device vmaps its slices (a batch of one when there are as
+        # many devices as slices)
+        def batched_fine(y_starts, slice_indices, t_0):
+            return jax.vmap(fine_call, in_axes=(0, 0, None))(
+                y_starts, slice_indices, t_0
+            )
 
-            def batched_fine_ends(y_starts, slice_indices, t_0):
-                return fine_end_call(
-                    y_starts[0], slice_indices[0], t_0
-                )[jnp.newaxis]
+        def batched_fine_ends(y_starts, slice_indices, t_0):
+            return jax.vmap(
+                lambda y, j: fine_end_call(y, j, t_0),
+                in_axes=(0, 0),
+            )(y_starts, slice_indices)
 
-            def batched_coarse_ends(y_starts, slice_indices, t_0):
-                if affine_batched_coarse_ends is not None:
-                    # keep every coarse evaluation on the identical
-                    # (P, r) matmul map the affine sweeps use
-                    return affine_batched_coarse_ends(y_starts)
-                return coarse_end_call_vmappable(
-                    y_starts[0], slice_indices[0], t_0
-                )[jnp.newaxis]
-
-        else:
-
-            def batched_fine(y_starts, slice_indices, t_0):
-                if fine_traj_batched is not None:
-                    # width-packed kernel: all slices' trajectories in
-                    # one program (autonomous systems — start times are
-                    # irrelevant under static boundary conditions)
-                    return fine_traj_batched(y_starts)
-                if fine_traj_sequential is not None:
-                    # sequential fused trajectory solves beat
-                    # lane-batched generic ones past the vmap-free
-                    # regime (see _prefer_sequential_fused); lax.map
-                    # keeps the Pallas kernel usable where vmap cannot
-                    # transform it
-                    return jax.lax.map(
-                        lambda args: fine_traj_sequential(
-                            args[0], t_0 + args[1] * delta
-                        ),
-                        (y_starts, slice_indices),
-                    )
-                return jax.vmap(fine_call, in_axes=(0, 0, None))(
-                    y_starts, slice_indices, t_0
-                )
-
-            def batched_fine_ends(y_starts, slice_indices, t_0):
-                if fine_ends_batched is not None:
-                    # the fused families are autonomous systems — the
-                    # batched end kernel ignores slice start times
-                    return fine_ends_batched(y_starts)
-                if fine_traj_sequential is not None:
-                    # no end kernel (e.g. beyond-VMEM tiled grids), but
-                    # a fused trajectory kernel exists: sequential
-                    # fused solves still beat lane-batched generic ones
-                    # past the saturation threshold
-                    return jax.lax.map(
-                        lambda args: fine_traj_sequential(
-                            args[0], t_0 + args[1] * delta
-                        )[-1],
-                        (y_starts, slice_indices),
-                    )
-                return jax.vmap(
-                    lambda y, j: fine_end_call(y, j, t_0),
-                    in_axes=(0, 0),
-                )(y_starts, slice_indices)
-
-            def batched_coarse_ends(y_starts, slice_indices, t_0):
-                if affine_batched_coarse_ends is not None:
-                    # keep every coarse evaluation on the identical
-                    # (P, r) matmul map the affine sweeps use
-                    return affine_batched_coarse_ends(y_starts)
-                if coarse_ends_batched is not None:
-                    return coarse_ends_batched(y_starts)
-                return jax.vmap(
-                    lambda y, j: coarse_end_call_vmappable(y, j, t_0),
-                    in_axes=(0, 0),
-                )(y_starts, slice_indices)
+        def batched_coarse_ends(y_starts, slice_indices, t_0):
+            if affine_batched_coarse_ends is not None:
+                # keep every coarse evaluation on the identical
+                # (P, r) matmul map the affine sweeps use
+                return affine_batched_coarse_ends(y_starts)
+            return jax.vmap(
+                lambda y, j: coarse_end_call(y, j, t_0),
+                in_axes=(0, 0),
+            )(y_starts, slice_indices)
 
         fcf = self._relaxation == "fcf"
 
@@ -1025,9 +760,9 @@ class PararealOperator(JaxOperator):
         # initial coarse sweep as ONE whole-domain coarse trajectory
         # (the reference's own structure — a single g.solve(ivp),
         # parareal_operator.py:133-139) instead of a scan of n per-slice
-        # solves, so fused multi-step kernels apply. A coarse operator
-        # that exposes an affine end_function skips this: its per-slice
-        # scan is O(n log steps) matvecs, far cheaper than expanding
+        # solves. A coarse operator that exposes an affine end_function
+        # skips this: its per-slice scan is O(n log steps) matvecs, far
+        # cheaper than expanding
         # (and discarding) the whole coarse interior, and it keeps the
         # initial sweep on the identical propagator the corrective
         # sweeps use. FCF always keeps the per-slice scan: its
@@ -1043,7 +778,6 @@ class PararealOperator(JaxOperator):
             coarse_whole_fn, coarse_whole_t = self._g.trajectory_function(
                 cp,
                 (0.0, n * slice_duration),
-                allow_fused=True,
                 time_parallel=self._use_time_parallel_trajectories(
                     cp, y_0
                 ),
@@ -1066,17 +800,6 @@ class PararealOperator(JaxOperator):
             and _fine_end is None
             and iterations > 0
         )
-        # statically-single-iteration runs on the packed kernel keep
-        # the raw packed trajectory end to end (see the fast paths
-        # below); with more iterations possible, deferring the unpack
-        # pays nothing (it runs once either way) and costs fusion
-        one_shot_raw = (
-            iteration_traj
-            and iterations == 1
-            and fine_traj_batched is not None
-            and hasattr(fine_traj_batched, "raw")
-        )
-
         def program(y_init, t_0):
             device_index = jax.lax.axis_index("time")
             first_slice = device_index * slices_per_device
@@ -1104,7 +827,7 @@ class PararealOperator(JaxOperator):
             else:
 
                 def sweep(y, j):
-                    y_end = coarse_end(y, j, t_0)
+                    y_end = coarse_end_call(y, j, t_0)
                     return y_end, y_end
 
                 _, coarse_ends = jax.lax.scan(
@@ -1139,24 +862,12 @@ class PararealOperator(JaxOperator):
                 # expansion
                 if iteration_traj:
                     i, y_borders, coarse_ends, _, _ = carry
-                    starts = local_slice(y_borders[:-1])
-                    if one_shot_raw:
-                        # single statically-known iteration with the
-                        # packed kernel: keep the kernel's raw packed
-                        # output so the final shift-add and unpacking
-                        # transpose fuse into ONE pass over the
-                        # trajectory
-                        sub_y_fine = fine_traj_batched.raw(starts)
-                        local_fine_ends = (
-                            fine_traj_batched.unpack_last(
-                                sub_y_fine, y_shape
-                            )
-                        )
-                    else:
-                        sub_y_fine = batched_fine(
-                            starts, local_slice_indices, t_0
-                        )
-                        local_fine_ends = sub_y_fine[:, -1]
+                    sub_y_fine = batched_fine(
+                        local_slice(y_borders[:-1]),
+                        local_slice_indices,
+                        t_0,
+                    )
+                    local_fine_ends = sub_y_fine[:, -1]
                 else:
                     i, y_borders, coarse_ends, _ = carry
                     # this device's fine solves, batched through vmap
@@ -1194,7 +905,7 @@ class PararealOperator(JaxOperator):
 
                 def corrective_sweep(j, state):
                     y_borders, coarse_ends = state
-                    re_predicted = coarse_end(y_borders[j], j, t_0)
+                    re_predicted = coarse_end_call(y_borders[j], j, t_0)
                     # FCF corrections are computed from per-slice
                     # coarse solves, so the sweep must re-predict
                     # at j == i too — reusing the initial
@@ -1318,30 +1029,11 @@ class PararealOperator(JaxOperator):
                 )
             # shift onto the corrected borders for continuity — the
             # reference's final shift semantics
-            if iteration_traj and one_shot_raw:
-                # packed fast path: add the shift in PACKED layout so
-                # it fuses with the unpacking transpose's read — one
-                # pass over the trajectory instead of two
-                ends = fine_traj_batched.unpack_last(
-                    sub_y_fine, y_shape
-                )
-                shifts = local_slice(y_borders[1:]) - ends
-                shifted = sub_y_fine + fine_traj_batched.pack_states(
-                    shifts
-                )
-                local = fine_traj_batched.unpack(
-                    shifted, y_shape
-                ).reshape(
-                    (slices_per_device * fine_steps,) + y_shape
-                )
-            else:
-                shifts = (
-                    local_slice(y_borders[1:]) - sub_y_fine[:, -1]
-                )
-                sub_y_fine = sub_y_fine + shifts[:, jnp.newaxis]
-                local = sub_y_fine.reshape(
-                    (slices_per_device * fine_steps,) + y_shape
-                )
+            shifts = local_slice(y_borders[1:]) - sub_y_fine[:, -1]
+            sub_y_fine = sub_y_fine + shifts[:, jnp.newaxis]
+            local = sub_y_fine.reshape(
+                (slices_per_device * fine_steps,) + y_shape
+            )
             if replicate_output:
                 # multi-host: every process needs the full trajectory
                 # host-side, mirroring the reference's final MPI
@@ -1351,12 +1043,12 @@ class PararealOperator(JaxOperator):
                 )
             return local
 
-        sharded_program = shard_map(
+        sharded_program = jax.shard_map(
             program,
             mesh=mesh,
             in_specs=(P(), P()),
             out_specs=P() if replicate_output else P("time"),
-            check_rep=False,
+            check_vma=False,
         )
         return jax.jit(sharded_program)
 
@@ -1364,7 +1056,6 @@ class PararealOperator(JaxOperator):
         self,
         cp,
         t_interval,
-        allow_fused: bool = True,
         time_parallel: bool = False,
     ):
         """The whole Parareal solve as one jittable ``(y_0, t_0) -> ys``

@@ -248,7 +248,6 @@ class SpaceTimePararealOperator(PararealOperator):
         self,
         cp,
         t_interval,
-        allow_fused: bool = True,
         time_parallel: bool = False,
     ):
         raise NotImplementedError(
@@ -305,7 +304,6 @@ class SpaceTimePararealOperator(PararealOperator):
             t_0,
             fine_steps * n,
             static_only=True,
-            allow_fused=False,
             padded_shape=build_padded,
         )
         coarse_step = self._g._build_step_function(
@@ -313,7 +311,6 @@ class SpaceTimePararealOperator(PararealOperator):
             t_0,
             coarse_steps * n,
             static_only=True,
-            allow_fused=False,
             padded_shape=build_padded,
         )
         fine_trajectory = self._f._build_trajectory_fn(
@@ -321,7 +318,6 @@ class SpaceTimePararealOperator(PararealOperator):
             t_0,
             fine_steps,
             static_only=True,
-            allow_fused=False,
             padded_shape=build_padded,
         )
 

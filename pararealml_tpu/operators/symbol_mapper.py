@@ -4,7 +4,8 @@ Capability match for /root/reference/pararealml/operators/symbol_mapper.py:
 23-271: parses the symbol-name grammar produced by
 :class:`~pararealml_tpu.differential_equation.Symbols`
 (``y-gradient_1_0`` etc.), compiles the right-hand sides once per LHS type
-with ``sympy.lambdify`` targeting ``jax.numpy``, and substitutes per-symbol
+with :func:`~pararealml_tpu.expression.compile_expressions` into
+``jax.numpy`` operations, and substitutes per-symbol
 evaluation closures. The compiled evaluators are pure and jit-traceable, so
 a whole FDM right-hand side fuses into one XLA computation.
 """
@@ -15,9 +16,9 @@ from typing import Callable, Dict, Generic, Optional, Sequence, TypeVar, \
     Union
 
 import numpy as np
-import sympy as sp
 
 from pararealml_tpu.differential_equation import LHS, DifferentialEquation
+from pararealml_tpu.expression import Symbol, compile_expressions
 
 SymbolMapArg = TypeVar("SymbolMapArg")
 SymbolMapValue = TypeVar("SymbolMapValue")
@@ -104,10 +105,10 @@ class SymbolMapper(Generic[SymbolMapArg, SymbolMapValue]):
 
     def create_symbol_map(
         self,
-    ) -> Dict[sp.Basic, SymbolMapFunction]:
+    ) -> Dict[Symbol, SymbolMapFunction]:
         """Builds the map from every symbol used in the equation system to
         its evaluation closure by parsing the symbol-name grammar."""
-        symbol_map: Dict[sp.Basic, SymbolMapFunction] = {}
+        symbol_map: Dict[Symbol, SymbolMapFunction] = {}
 
         x_dimension = self._diff_eq.x_dimension
         eq_sys = self._diff_eq.symbolic_equation_system
@@ -165,7 +166,7 @@ class SymbolMapper(Generic[SymbolMapArg, SymbolMapValue]):
         self, indices: Sequence[int]
     ) -> Callable[[SymbolMapArg], Sequence[SymbolMapValue]]:
         """Compiles the selected right-hand sides into a single
-        ``jax.numpy``-backed callable (lambdified once), fed by the
+        ``jax.numpy``-backed callable (compiled once), fed by the
         per-symbol closures."""
         rhs = self._diff_eq.symbolic_equation_system.rhs
 
@@ -175,7 +176,7 @@ class SymbolMapper(Generic[SymbolMapArg, SymbolMapValue]):
             key=lambda s: s.name,
         )
         subst_functions = [self._symbol_map[s] for s in selected_symbols]
-        rhs_lambda = sp.lambdify([selected_symbols], selected_rhs, "jax")
+        rhs_lambda = compile_expressions(selected_rhs, selected_symbols)
 
         def rhs_map_function(
             arg: SymbolMapArg,

@@ -1,63 +1,11 @@
-from pararealml_tpu.ops.fused_diffusion import (
-    build_fused_diffusion_rk4_end,
-    build_fused_diffusion_rk4_step,
-    build_fused_diffusion_rk4_trajectory,
-    fused_diffusion_step_applicable,
-)
-from pararealml_tpu.ops.fused_system import (
-    build_fused_system_rk4_end,
-    build_fused_system_rk4_step,
-    build_fused_system_rk4_trajectory,
-    build_fused_wave_rk4_step,
-    build_fused_wave_rk4_trajectory,
-    fused_burgers_step_applicable,
-    fused_cahn_hilliard_step_applicable,
-    fused_navier_stokes_step_applicable,
-    fused_shallow_water_step_applicable,
-    fused_system_step_applicable,
-    fused_wave_step_applicable,
-)
 from pararealml_tpu.ops.linear_propagator import (
     build_linear_propagator_trajectory,
     equation_system_is_affine,
     linear_propagator_applicable,
     probe_affine_step,
 )
-from pararealml_tpu.ops.fused_system_3d import (
-    build_fused_system_3d_rk4_end,
-    build_fused_system_3d_rk4_step,
-    build_fused_system_3d_rk4_trajectory,
-    fused_system_3d_step_applicable,
-)
-from pararealml_tpu.ops.tiled_diffusion import (
-    build_tiled_diffusion_rk4_trajectory,
-)
-from pararealml_tpu.ops.tiled_system import (
-    build_tiled_system_rk4_trajectory,
-)
 
 __all__ = [
-    "build_fused_diffusion_rk4_end",
-    "build_fused_diffusion_rk4_step",
-    "build_fused_diffusion_rk4_trajectory",
-    "fused_diffusion_step_applicable",
-    "build_fused_system_rk4_end",
-    "build_fused_system_rk4_step",
-    "build_fused_system_rk4_trajectory",
-    "build_fused_wave_rk4_step",
-    "build_fused_wave_rk4_trajectory",
-    "fused_burgers_step_applicable",
-    "fused_cahn_hilliard_step_applicable",
-    "fused_navier_stokes_step_applicable",
-    "fused_shallow_water_step_applicable",
-    "fused_system_step_applicable",
-    "fused_wave_step_applicable",
-    "build_fused_system_3d_rk4_end",
-    "build_fused_system_3d_rk4_step",
-    "build_fused_system_3d_rk4_trajectory",
-    "fused_system_3d_step_applicable",
-    "build_tiled_diffusion_rk4_trajectory",
-    "build_tiled_system_rk4_trajectory",
     "build_linear_propagator_trajectory",
     "equation_system_is_affine",
     "linear_propagator_applicable",

@@ -1,4 +1,4 @@
-"""Exact affine propagators: linear-problem trajectories as MXU matmuls.
+"""Exact affine propagators: linear-problem trajectories as matmuls.
 
 For a linear differential equation with static boundary conditions and an
 explicit integrator, one FDM (or ODE) time step is an *affine* map of the
@@ -13,13 +13,12 @@ recovers ``(S, q)`` *exactly* by probing the generic step function with
 the standard basis, then reformulates the trajectory as a scan of
 matmuls against ``S``. The payoff is in the batched (``vmap``) case —
 the one Parareal creates by stacking time slices: each scan step becomes
-a single ``(B, dim) x (dim, dim)`` matmul on the TPU's MXU systolic
-array, where the stencil formulation of the same batched step is
-elementwise VPU work with O(1) arithmetic intensity scattered over many
-small fused ops. Only ``S`` itself (``dim^2`` scalars) and the
-binary-power chain for the end-state map (``log2(n)`` more matrices)
-ride in the compiled program, so program size stays bounded regardless
-of trajectory length.
+a single ``(B, dim) x (dim, dim)`` matmul, where the stencil formulation
+of the same batched step is elementwise work with O(1) arithmetic
+intensity scattered over many small fused ops. Only ``S`` itself
+(``dim^2`` scalars) and the binary-power chain for the end-state map
+(``log2(n)`` more matrices) ride in the compiled program, so program
+size stays bounded regardless of trajectory length.
 
 End states skip the interior entirely: ``y_n = P y_0 + r`` with
 ``(P, r)`` the ``n``-step composition, materialized once at build time
@@ -29,7 +28,7 @@ slices), and the composed map itself (``affine_slice_map``) lets the
 Parareal operator run its corrective coarse sweeps as log-depth
 doubling scans instead of ``n`` dependent solves.
 
-This is the TPU-first replacement for the reference's batched fine
+This is the accelerator-side replacement for the reference's batched fine
 solves inside Parareal (/root/reference/pararealml/operators/parareal/
 parareal_operator.py:163: one fine solve per MPI rank per iteration);
 sequential solves outside the parallel-in-time composition keep using
@@ -43,10 +42,10 @@ from typing import Callable, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-import sympy as sp
 
 from pararealml_tpu.constrained_problem import ConstrainedProblem
 from pararealml_tpu.differential_equation import LHS
+from pararealml_tpu.expression import degree
 
 # S alone is dim^2; beyond this the dense formulation loses to stencils
 _MAX_DIM = 4096
@@ -54,17 +53,10 @@ _MAX_DIM = 4096
 # trajectory interiors chunk-at-a-time (64 MB of f32): caps both the
 # compiled program's constant size and the per-chunk matmul width
 _MAX_CHUNK_STACK_ELEMS = 16_777_216
-# matmul precision: f32 inputs on the TPU MXU default to bf16 passes,
-# which is far too coarse for chained propagators; HIGHEST requests the
-# full-precision (6-pass) f32 composition
+# matmul precision: chained propagators amplify rounding, so every
+# propagator matmul asks for full float32 (on GPUs this keeps float32
+# matmuls off the TF32 tensor-core path, which keeps ~3 decimal digits)
 _PRECISION = jax.lax.Precision.HIGHEST
-# the chunk-interior expansion is the converged program's dominant
-# matmul (profiled at ~0.77 ms of the n=100 benchmark's ~2 ms), but
-# measured on hardware, dropping it to HIGH (3-pass) doubles the
-# benchmark's max error vs the fine solve (2.5e-3 -> 5.3e-3, past the
-# termination tolerance), so it stays at the full-precision
-# composition like every other propagator matmul
-_INTERIOR_PRECISION = jax.lax.Precision.HIGHEST
 
 
 def _all_symbol_arrays(symbols):
@@ -96,18 +88,10 @@ def equation_system_is_affine(diff_eq) -> bool:
         for s in np.asarray(array).flatten()
     }
     for expr in diff_eq.symbolic_equation_system.rhs:
-        expr = sp.sympify(expr)
-        free = expr.free_symbols
-        if t in free:
+        if t in expr.free_symbols:
             return False
-        present = sorted(free & y_symbols, key=str)
-        if not present:
-            continue
-        try:
-            poly = sp.Poly(expr, *present)
-        except sp.PolynomialError:
-            return False
-        if poly.total_degree() > 1:
+        expr_degree = degree(expr, y_symbols)
+        if expr_degree is None or expr_degree > 1:
             return False
     return True
 
@@ -174,9 +158,9 @@ def probe_affine_step(
     rng = np.random.default_rng(0)
     y_random = jnp.asarray(rng.standard_normal(dim), dtype)
     direct = np.asarray(jax.jit(flat_step)(y_random))
-    # the verification matmul must itself run at the full-precision
-    # f32 composition: the default MXU bf16 passes carry ~1e-3
-    # relative error — the very threshold being tested
+    # the verification matmul must itself run in full float32:
+    # reduced-precision matmul passes carry ~1e-3 relative error — the
+    # very threshold being tested
     via_affine = np.asarray(
         jnp.matmul(s_matrix, y_random, precision=_PRECISION) + q,
         np.float64,
@@ -225,9 +209,9 @@ def build_linear_propagator_trajectory(
     """Builds ``trajectory(y, t_0) -> ys`` computing ``n_steps`` steps of
     the affine step map as a scan of matmuls against ``S``.
 
-    The returned function is pure jnp (no Pallas), so it freely composes
+    The returned function is pure jnp, so it freely composes
     with ``vmap`` — under which each scan step is one large
-    ``(B, dim) x (dim, dim)`` MXU matmul over the batch of Parareal
+    ``(B, dim) x (dim, dim)`` matmul over the batch of Parareal
     slices — and with ``shard_map``. It also exposes ``end_function``,
     an O(log n)-matvec map to the trajectory's final state for
     sequential sweeps that never need the interior.
@@ -246,7 +230,7 @@ def build_linear_propagator_trajectory(
     # chunked interior expansion: with the stacked powers
     # [S^1.T .. S^c.T] (precomputed once, (dim, c*dim) flattened), a
     # whole chunk of c trajectory states is ONE (B, dim) x (dim, c*dim)
-    # MXU matmul from the chunk-start state — the time axis itself is
+    # matmul from the chunk-start state — the time axis itself is
     # parallelized within a chunk, cutting the serial scan length by c
     chunk = max(
         1, min(64, n_steps, _MAX_CHUNK_STACK_ELEMS // (dim * dim))
@@ -254,8 +238,8 @@ def build_linear_propagator_trajectory(
     if chunk > 1 and n_steps % chunk:
         # prefer an exact divisor of n_steps within 2x of the cap: the
         # padded tail otherwise forces a [:n_steps] truncation copy of
-        # the whole expanded trajectory (profiled at ~0.1 ms on the
-        # n=100 benchmark program) plus up to chunk-1 wasted states
+        # the whole expanded trajectory plus up to chunk-1 wasted
+        # states
         for candidate in range(chunk, chunk // 2, -1):
             if n_steps % candidate == 0:
                 chunk = candidate
@@ -278,17 +262,14 @@ def build_linear_propagator_trajectory(
         # a log-depth Hillis-Steele doubling scan over precomputed
         # (S^c)^(2^l) instead of a sequential chunk scan — and with
         # every chunk start known, ALL interiors are one batched
-        # (n_chunks, dim) x (dim, c*dim) MXU matmul. The whole
+        # (n_chunks, dim) x (dim, c*dim) matmul. The whole
         # trajectory expansion then has O(log n_chunks) serial depth.
         # The doubling powers ride in the compiled program; past the
         # footprint cap the sequential chunk scan remains.
         boundary_levels = (n_chunks - 1).bit_length()
-        # measured on v5e (benchmark diffusion_2d Parareal): doubling
-        # wins decisively on deep chunk scans (the 8-slice config's
-        # 100-chunk expansion: 8.3 -> 2.0 ms whole-program) but costs
-        # ~0.5 ms of extra data formatting on shallow ones (the
-        # 100-slice config's 8-chunk expansion regressed 2.0 -> 2.5 ms),
-        # so shallow scans keep the sequential chunk loop
+        # doubling shortens deep chunk scans but adds data formatting
+        # on shallow ones, so shallow scans keep the sequential chunk
+        # loop
         use_doubling = (
             n_chunks >= 16
             and boundary_levels * dim * dim * np.dtype(dtype).itemsize
@@ -336,7 +317,7 @@ def build_linear_propagator_trajectory(
                     [y_flat[jnp.newaxis], v[:-1]], axis=0
                 )
                 ys = jnp.matmul(
-                    starts, pow_flat, precision=_INTERIOR_PRECISION
+                    starts, pow_flat, precision=_PRECISION
                 ).reshape(n_chunks, chunk, dim) + offset_stack
                 ys = ys.reshape(n_chunks * chunk, dim)[:n_steps]
             else:
@@ -389,12 +370,11 @@ def build_linear_propagator_trajectory(
         per-iteration fine ends and (non-affine-sweep) corrective
         coarse sweeps skip the interior entirely. Under ``vmap`` the
         batch of Parareal slices contracts as a single
-        ``(B, dim) x (dim, dim)`` MXU matmul."""
+        ``(B, dim) x (dim, dim)`` matmul."""
         out = jnp.asarray(y, dtype).reshape(dim)
         out = jnp.matmul(out, p_total_t, precision=_PRECISION) + r_total
         return out.reshape(tuple(y_shape)).astype(jnp.result_type(y))
 
     trajectory.end_function = end_state
     trajectory.affine_slice_map = (p_total_t, r_total)
-    trajectory.vmappable = True
     return trajectory

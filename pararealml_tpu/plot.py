@@ -10,23 +10,38 @@ design: animated plots are template-method subclasses that render
 frames through overridden methods rather than injected closures, and
 input validation is centralized in module-level guards.
 
-Everything in this module is host-side; solver code never imports it.
+Everything in this module is host-side; solver code never imports it,
+and matplotlib is imported only when a plot is built.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import TYPE_CHECKING, List, Optional, Sequence, Tuple, Union
 
-import matplotlib.pyplot as plt
 import numpy as np
-from matplotlib import cm
-from matplotlib.animation import FuncAnimation
-from matplotlib.cm import ScalarMappable
-from matplotlib.colors import Colormap
-from matplotlib.figure import Figure
 
 from pararealml_tpu.differential_equation import NBodyGravitationalEquation
 from pararealml_tpu.mesh import CoordinateSystem, Mesh
+
+if TYPE_CHECKING:
+    from matplotlib.colors import Colormap
+    from matplotlib.figure import Figure
+
+
+def _pyplot():
+    """Imports pyplot on first use, so that importing this module (and
+    the package root) does not need matplotlib."""
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
+def _colormap(color_map: Union[str, "Colormap"]) -> "Colormap":
+    import matplotlib
+
+    if isinstance(color_map, str):
+        return matplotlib.colormaps[color_map]
+    return color_map
 
 
 def _require_trajectory_rank(y: np.ndarray, rank: int):
@@ -105,7 +120,7 @@ class Plot:
 
     def show(self) -> "Plot":
         """Renders the figure in the active matplotlib backend."""
-        plt.show()
+        _pyplot().show()
         return self
 
     def save(
@@ -121,7 +136,7 @@ class Plot:
 
     def close(self):
         """Releases the figure's resources."""
-        plt.close(self._figure)
+        _pyplot().close(self._figure)
 
     def _write(self, full_path: str, **kwargs):
         self._figure.savefig(full_path, **kwargs)
@@ -149,6 +164,8 @@ class AnimatedPlot(Plot):
                 np.linspace(0, n_time_steps - 1, max(int(n_frames), 1))
             ).astype(int)
         ) if n_frames < n_time_steps else np.arange(n_time_steps)
+        from matplotlib.animation import FuncAnimation
+
         self._animation = FuncAnimation(
             figure,
             func=self._render_frame,
@@ -189,7 +206,7 @@ class TimePlot(Plot):
             )
             raise ValueError(message)
 
-        figure, axes = plt.subplots()
+        figure, axes = _pyplot().subplots()
         for index, component in enumerate(y.T):
             axes.plot(t, component, label=f"y{index}")
         axes.set_xlabel("t")
@@ -214,7 +231,7 @@ class PhaseSpacePlot(Plot):
             )
             raise ValueError(message)
 
-        figure = plt.figure()
+        figure = _pyplot().figure()
         if components == 2:
             axes = figure.add_subplot()
             axes.plot(y[:, 0], y[:, 1])
@@ -238,7 +255,7 @@ class NBodyPlot(AnimatedPlot):
         self, y: np.ndarray,
         diff_eq: NBodyGravitationalEquation,
         n_frames: int = 100, interval: int = 100,
-        color_map: Colormap = cm.cividis,
+        color_map: Union[str, Colormap] = "cividis",
         smallest_marker_size: float = 10.0,
         draw_trajectory: bool = True,
         trajectory_line_style: str = ":",
@@ -274,7 +291,9 @@ class NBodyPlot(AnimatedPlot):
         self._marker_areas = np.pi * np.cbrt(
             3.0 * volumes / (4.0 * np.pi)
         ) ** 2
-        self._colors = color_map(np.linspace(0.0, 1.0, n_bodies))
+        self._colors = _colormap(color_map)(
+            np.linspace(0.0, 1.0, n_bodies)
+        )
         self._spatial = spatial
         self._draw_trails = draw_trajectory
         self._trail_style = trajectory_line_style
@@ -283,8 +302,8 @@ class NBodyPlot(AnimatedPlot):
         self._trails: Optional[List] = None
         self._style = "dark_background"
 
-        with plt.style.context(self._style):
-            figure = plt.figure()
+        with _pyplot().style.context(self._style):
+            figure = _pyplot().figure()
             self._axes = figure.add_subplot(
                 projection="3d" if spatial == 3 else None
             )
@@ -293,7 +312,7 @@ class NBodyPlot(AnimatedPlot):
 
     def _render_initial(self):
         axes = self._axes
-        with plt.style.context(self._style):
+        with _pyplot().style.context(self._style):
             axes.clear()
             start = [p[0, :] for p in self._positions]
             marker_kwargs = dict(s=self._marker_areas, c=self._colors)
@@ -368,7 +387,7 @@ class SpaceLinePlot(AnimatedPlot):
         self._y_limits = _value_range(y, v_min, v_max)
         self._equal_scale = equal_scale
         self._profile = None
-        figure, self._axes = plt.subplots()
+        figure, self._axes = _pyplot().subplots()
         super().__init__(figure, y.shape[0], n_frames, interval)
 
     def _render_initial(self):
@@ -392,7 +411,7 @@ class ContourPlot(AnimatedPlot):
         self, y: np.ndarray,
         mesh: Mesh, vertex_oriented: bool,
         n_frames: int = 100, interval: int = 100,
-        color_map: Colormap = cm.viridis,
+        color_map: Union[str, Colormap] = "viridis",
         v_min: Optional[float] = None, v_max: Optional[float] = None,
         **_,
     ):
@@ -403,7 +422,7 @@ class ContourPlot(AnimatedPlot):
         self._color_map = color_map
         self._contours = None
         self._axes = None
-        figure = plt.figure()
+        figure = _pyplot().figure()
         super().__init__(figure, y.shape[0], n_frames, interval)
 
     def _fill(self, time_step: int):
@@ -422,6 +441,8 @@ class ContourPlot(AnimatedPlot):
         self._axes.set_xlabel("x0")
         self._axes.set_ylabel("x1")
         self._axes.axis("scaled")
+        from matplotlib.cm import ScalarMappable
+
         colors = ScalarMappable(cmap=self._color_map)
         colors.set_clim(*self._limits)
         self._figure.colorbar(mappable=colors, ax=self._axes)
@@ -438,7 +459,7 @@ class SurfacePlot(AnimatedPlot):
         self, y: np.ndarray,
         mesh: Mesh, vertex_oriented: bool,
         n_frames: int = 100, interval: int = 100,
-        color_map: Colormap = cm.viridis,
+        color_map: Union[str, Colormap] = "viridis",
         v_min: Optional[float] = None, v_max: Optional[float] = None,
         equal_scale: bool = False,
         **_,
@@ -465,7 +486,7 @@ class SurfacePlot(AnimatedPlot):
             cmap=color_map,
         )
         self._surface = None
-        figure = plt.figure()
+        figure = _pyplot().figure()
         self._axes = figure.add_subplot(projection="3d")
         super().__init__(figure, y.shape[0], n_frames, interval)
 
@@ -498,7 +519,7 @@ class ScatterPlot(AnimatedPlot):
         self, y: np.ndarray,
         mesh: Mesh, vertex_oriented: bool,
         n_frames: int = 100, interval: int = 100,
-        color_map: Colormap = cm.viridis,
+        color_map: Union[str, Colormap] = "viridis",
         v_min: Optional[float] = None, v_max: Optional[float] = None,
         marker_shape: str = "o",
         marker_size: Union[float, np.ndarray] = 20.0,
@@ -508,13 +529,15 @@ class ScatterPlot(AnimatedPlot):
         _require_field(y, mesh, vertex_oriented, 3, 1)
         self._field = y
         self._grids = mesh.cartesian_coordinate_grids(vertex_oriented)
+        from matplotlib.cm import ScalarMappable
+
         self._colors = ScalarMappable(cmap=color_map)
         self._colors.set_clim(*_value_range(y, v_min, v_max))
         self._marker_shape = marker_shape
         self._marker_size = marker_size
         self._marker_opacity = marker_opacity
         self._markers = None
-        figure = plt.figure()
+        figure = _pyplot().figure()
         self._axes = figure.add_subplot(projection="3d")
         super().__init__(figure, y.shape[0], n_frames, interval)
 
@@ -558,7 +581,7 @@ class StreamPlot(AnimatedPlot):
         self._polar = (
             mesh.coordinate_system_type == CoordinateSystem.POLAR
         )
-        figure = plt.figure()
+        figure = _pyplot().figure()
 
         if self._polar:
             # matplotlib's polar axes take (theta, r): swap the mesh's
@@ -640,7 +663,7 @@ class QuiverPlot(AnimatedPlot):
         self._normalize = normalize
         self._pivot = pivot
         self._arrows = None
-        figure = plt.figure()
+        figure = _pyplot().figure()
 
         if self._spatial == 2:
             u = np.array(cartesian_field[..., 0])

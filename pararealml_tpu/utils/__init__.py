@@ -1,4 +1,6 @@
-from pararealml_tpu.utils.checkpoint import load_pytree, save_pytree
+"""Utilities. Checkpointing lives in :mod:`pararealml_tpu.utils.checkpoint`,
+which needs flax and is imported only where it is used."""
+
 from pararealml_tpu.utils.distributed import (
     initialize as initialize_distributed,
     is_distributed,
@@ -13,8 +15,6 @@ __all__ = [
     "time",
     "device_time",
     "mesh_time",
-    "save_pytree",
-    "load_pytree",
     "initialize_distributed",
     "is_distributed",
     "time_mesh",

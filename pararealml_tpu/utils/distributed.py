@@ -1,14 +1,15 @@
-"""Multi-host (DCN) distribution scaffolding.
+"""Multi-host distribution scaffolding.
 
 The reference scales Parareal across hosts with MPI — one rank per time
 slice, launched via ``mpiexec`` (/root/reference/pararealml/operators/
 parareal/parareal_operator.py:108; /root/reference/Makefile:34-35). The
-TPU-native equivalent is JAX's multi-process runtime: every host runs
+JAX equivalent is JAX's multi-process runtime: every host runs
 the *same* program, :func:`initialize` connects them through a
 coordinator, and ``jax.devices()`` then returns the devices of ALL
-hosts, so a ``jax.sharding.Mesh`` built from it spans DCN. The
+hosts, so a ``jax.sharding.Mesh`` built from it spans every host. The
 ``shard_map`` Parareal program needs no changes — XLA routes its
-``all_gather`` over ICI within a pod slice and DCN across slices.
+``all_gather`` over the interconnect within a host and the network
+across hosts.
 
 Launch recipe (one command per host)::
 
@@ -28,9 +29,8 @@ with the script starting::
                                      # trajectory, like the reference's
                                      # final MPI Allgather
 
-On Cloud TPU pods the three arguments can all be omitted —
-``jax.distributed.initialize()`` auto-discovers them from the TPU
-metadata. A two-process CPU smoke test lives in
+On clusters that JAX can detect (e.g. under SLURM) the three
+arguments can be omitted; elsewhere pass all three. A two-process CPU smoke test lives in
 ``tests/operators/parareal/test_distributed.py``.
 """
 
@@ -51,10 +51,9 @@ def initialize(
 ) -> None:
     """Connects this process to the multi-host JAX runtime.
 
-    Must be called before any other JAX API touches the backend. On
-    Cloud TPU all arguments are auto-discovered; on other platforms pass
+    Must be called before any other JAX API touches the backend. Pass
     the coordinator's ``host:port``, the total process count, and this
-    process's rank.
+    process's rank unless JAX's cluster detection finds them.
     """
     jax.distributed.initialize(
         coordinator_address=coordinator_address,

@@ -5,8 +5,8 @@ configures TensorFlow devices and determinism for the ML operators:
 
 - ``use_cpu``: force computations onto the host CPU backend.
 - ``use_double_precision``: enable float64 (the reference is implicitly
-  float64 through NumPy; on TPU float32 is the performant default, so
-  this is opt-in).
+  float64 through NumPy; on accelerators float32 is the performant
+  default, so this is opt-in).
 - ``limit_visible_devices``: restrict the process's default device — the
   analog of the reference's per-MPI-rank GPU pinning
   (``limit_visible_gpus``); under a JAX mesh, sharding replaces rank

@@ -1,7 +1,7 @@
 """Profiling utilities.
 
 The reference's only observability is wall-clock printing (SURVEY.md §5);
-this module adds the TPU-native equivalents: XLA profiler traces viewable
+this module adds on-device equivalents: XLA profiler traces viewable
 in TensorBoard/Perfetto and named trace annotations that show up on the
 device timeline.
 """

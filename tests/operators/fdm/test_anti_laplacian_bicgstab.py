@@ -189,30 +189,28 @@ def test_navier_stokes_solve_matches_jacobi():
     assert float(np.max(np.abs(y_krylov - y_jacobi))) < 1e-5
 
 
-def test_navier_stokes_bicgstab_stays_off_fused_kernel():
-    ivp, cp = _navier_stokes_ivp()
-    op = FDMOperator(
-        RK4(),
-        ThreePointCentralDifferenceMethod(
-            tol=1e-8, anti_laplacian_method="bicgstab"
-        ),
-        0.01,
-    )
-    assert not op._fused_anti_laplacian_compatible(cp)
-    # non-Y_LAPLACIAN problems remain fused-eligible under bicgstab
-    from pararealml_tpu import DiffusionEquation, NeumannBoundaryCondition
+def test_navier_stokes_bicgstab_stays_off_fused_kernel(monkeypatch):
+    # the solver's step must run the anti-Laplacian method the
+    # differentiator was configured with
+    import jax
+    import jax.numpy as jnp
 
-    diffusion_cp = ConstrainedProblem(
-        DiffusionEquation(2),
-        Mesh([(0.0, 1.0), (0.0, 1.0)], [0.1, 0.1]),
-        [
-            (
-                NeumannBoundaryCondition(
-                    lambda x, t: np.zeros((len(x), 1)), is_static=True
-                ),
-            )
-            * 2
-        ]
-        * 2,
+    ivp, cp = _navier_stokes_ivp()
+    differentiator = ThreePointCentralDifferenceMethod(
+        tol=1e-8, anti_laplacian_method="bicgstab"
     )
-    assert op._fused_anti_laplacian_compatible(diffusion_cp)
+    calls = []
+    method = type(differentiator)._anti_laplacian_bicgstab
+
+    def spy(self, *args, **kwargs):
+        calls.append(1)
+        return method(self, *args, **kwargs)
+
+    monkeypatch.setattr(
+        type(differentiator), "_anti_laplacian_bicgstab", spy
+    )
+    op = FDMOperator(RK4(), differentiator, 0.01)
+    fn, _ = op.trajectory_function(cp, (0.0, 0.02))
+    y_0 = jnp.asarray(ivp.initial_condition.discrete_y_0(True))
+    jax.eval_shape(fn, y_0, 0.0)
+    assert calls

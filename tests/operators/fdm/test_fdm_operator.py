@@ -350,7 +350,7 @@ def test_implicit_integrator_with_neumann_diffusion(integrator_factory):
         integrator_factory(), ThreePointCentralDifferenceMethod(), 0.01
     )
     explicit_op = FDMOperator(
-        RK4(), ThreePointCentralDifferenceMethod(), 0.01
+        RK4(), ThreePointCentralDifferenceMethod(), 0.01,
     )
     y_implicit = implicit_op.solve(ivp).discrete_y()
     y_explicit = explicit_op.solve(ivp).discrete_y()
@@ -442,15 +442,29 @@ def test_ends_function_matches_trajectory_last_frame():
 
     op = FDMOperator(
         RK4(), ThreePointCentralDifferenceMethod(), 0.01,
-        fused_kernels=False,
     )
     trajectory, _ = op.trajectory_function(cp, (0.0, 0.1))
     ends = op.ends_function(cp, (0.0, 0.1))
-    assert ends.vmappable and not ends.fused
+    # Parareal vmaps the ends over a device's slices
+    _assert_vmaps_like_calls(ends, y_0, jnp.asarray(0.0))
     np.testing.assert_array_equal(
         np.asarray(ends(y_0, jnp.asarray(0.0))),
         np.asarray(trajectory(y_0, jnp.asarray(0.0))[-1]),
     )
+
+
+def _assert_vmaps_like_calls(fn, y_0, second_arg):
+    import jax
+    import jax.numpy as jnp
+
+    batch = jnp.stack([y_0, 0.5 * y_0])
+    batched = np.asarray(
+        jax.vmap(fn, in_axes=(0, None))(batch, second_arg)
+    )
+    for k in range(2):
+        np.testing.assert_allclose(
+            batched[k], np.asarray(fn(batch[k], second_arg)), rtol=1e-12
+        )
 
 
 def test_indexed_ends_function_matches_indexed_trajectory():
@@ -477,7 +491,7 @@ def test_indexed_ends_function_matches_indexed_trajectory():
     op = FDMOperator(RK4(), ThreePointCentralDifferenceMethod(), 0.01)
     trajectory = op.indexed_trajectory_function(cp, 0.0, 0.25, 4)
     ends = op.indexed_ends_function(cp, 0.0, 0.25, 4)
-    assert ends.vmappable
+    _assert_vmaps_like_calls(ends, y_0, jnp.asarray(1))
 
     y = y_0
     for k in range(4):

@@ -263,8 +263,8 @@ def test_fdm_solve_with_five_point_conserves_mass():
 
 
 def test_dirichlet_solve_runs_on_generic_path():
-    # the fused Pallas kernels implement the three-point stencils only;
-    # the five-point differentiator must not dispatch to them
+    # a Dirichlet solve with the five-point differentiator runs end to
+    # end, and its carry-only ends match the trajectory's last frame
     diff_eq = DiffusionEquation(2, 1.0)
     mesh = Mesh([(0.0, 1.0), (0.0, 1.0)], [0.1, 0.1])
     bcs = [
@@ -282,6 +282,12 @@ def test_dirichlet_solve_runs_on_generic_path():
     ivp = InitialValueProblem(cp, (0.0, 0.01), ic)
     op = FDMOperator(RK4(), DIFF5, 1e-4)
     ends_fn = op.ends_function(cp, (0.0, 0.01))
-    assert not getattr(ends_fn, "fused", False)
     solution = op.solve(ivp)
     assert solution.discrete_y().shape[0] == 100
+    y_0 = np.asarray(ivp.initial_condition.discrete_y_0(True))
+    np.testing.assert_allclose(
+        np.asarray(ends_fn(y_0, 0.0)),
+        solution.discrete_y()[-1],
+        rtol=0.0,
+        atol=1e-12,
+    )

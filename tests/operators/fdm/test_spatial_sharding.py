@@ -49,7 +49,6 @@ def _solve_both(ivp, d_t, mesh=None, partition=None, tol=1e-3):
         RK4(),
         ThreePointCentralDifferenceMethod(tol=tol),
         d_t,
-        fused_kernels=False,
     )
     sharded = FDMOperator(
         RK4(),
@@ -215,7 +214,7 @@ def test_navier_stokes_bicgstab_anti_laplacian_sharded():
     differentiator = ThreePointCentralDifferenceMethod(
         tol=1e-8, anti_laplacian_method="bicgstab"
     )
-    single = FDMOperator(RK4(), differentiator, 0.01, fused_kernels=False)
+    single = FDMOperator(RK4(), differentiator, 0.01)
     sharded = FDMOperator(
         RK4(), differentiator, 0.01, spatial_mesh=space_mesh(8)
     )
@@ -416,7 +415,6 @@ def test_implicit_integrator_sharded():
         CrankNicolsonMethod(),
         ThreePointCentralDifferenceMethod(),
         0.05,
-        fused_kernels=False,
     )
     sharded = FDMOperator(
         CrankNicolsonMethod(),

@@ -192,7 +192,10 @@ def test_trajectory_function_matches_solve():
     # the carry-only ends roll-out (Parareal's correction-iteration
     # consumer) must be bit-identical to the trajectory's final frame
     ends = operator.ends_function(cp, (0.0, 1.0))
-    assert ends.vmappable and not ends.fused
+    batched = jax.vmap(ends, in_axes=(0, None))(
+        np.array([[1.0], [1.0]]), 0.0
+    )
+    np.testing.assert_allclose(np.asarray(batched)[1], rollout[-1])
     np.testing.assert_array_equal(
         np.asarray(jax.jit(ends)(np.array([1.0]), 0.0)),
         rollout[-1],

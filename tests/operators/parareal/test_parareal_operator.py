@@ -408,13 +408,11 @@ def test_tune_num_time_slices():
         RK4(),
         ThreePointCentralDifferenceMethod(),
         0.01,
-        fused_kernels=False,
     )
     g = FDMOperator(
         RK4(),
         ThreePointCentralDifferenceMethod(),
         0.05,
-        fused_kernels=False,
     )
     parareal = PararealOperator(f, g, 1e-3)
 
@@ -447,13 +445,11 @@ def test_tune_candidate_validation():
         RK4(),
         ThreePointCentralDifferenceMethod(),
         0.01,
-        fused_kernels=False,
     )
     g = FDMOperator(
         RK4(),
         ThreePointCentralDifferenceMethod(),
         0.05,
-        fused_kernels=False,
     )
     parareal = PararealOperator(f, g, 1e-3, num_time_slices=8)
 
@@ -467,126 +463,6 @@ def test_tune_candidate_validation():
         parareal.tune_num_time_slices(ivp, candidates=(0,))
     # failed tuning leaves the configured count untouched
     assert parareal._num_time_slices == 8
-
-
-
-def _large_grid_diffusion_ivp(t_end=0.32):
-    # 129x129 vertices: past _SEQUENTIAL_FUSED_MIN_GRID_POINTS, so
-    # vmap-batched decompositions switch the fine/coarse sub-solves to
-    # sequential fused kernels
-    mesh = Mesh([(0.0, 12.8), (0.0, 12.8)], [0.1, 0.1])
-    bc = NeumannBoundaryCondition(
-        lambda x, t: np.zeros((len(x), 1)), is_static=True
-    )
-    cp = ConstrainedProblem(
-        DiffusionEquation(2, 0.1), mesh, [(bc, bc)] * 2
-    )
-    ic = GaussianInitialCondition(
-        cp, [(np.full(2, 6.4), 2.0 * np.eye(2))]
-    )
-    return InitialValueProblem(cp, (0.0, t_end), ic)
-
-
-def test_prefer_sequential_fused_heuristic():
-    import jax
-
-    f = FDMOperator(RK4(), ThreePointCentralDifferenceMethod(), 0.01)
-    g = FDMOperator(RK4(), ThreePointCentralDifferenceMethod(), 0.02)
-    parareal = PararealOperator(f, g, None, num_time_slices=16)
-
-    small = _diffusion_ivp().constrained_problem  # 11x11
-    large = _large_grid_diffusion_ivp().constrained_problem  # 129x129
-    ode = _lorenz_ivp().constrained_problem
-    assert not parareal._prefer_sequential_fused(small)
-    assert parareal._prefer_sequential_fused(large)
-    assert not parareal._prefer_sequential_fused(ode)
-
-    # the batched fused end kernel is actually buildable at this size
-    # (the fused families are f32; x64 disables them)
-    jax.config.update("jax_enable_x64", False)
-    try:
-        batched_ends = f.ends_function(
-            large, (0.0, 0.02), allow_fused=True, batch=2
-        )
-        assert batched_ends.fused and batched_ends.batched
-    finally:
-        jax.config.update("jax_enable_x64", True)
-
-
-def _sequential_fused_operators(fused, relaxation, max_iterations):
-    f = FDMOperator(
-        RK4(),
-        ThreePointCentralDifferenceMethod(),
-        0.01,
-        fused_kernels=fused,
-    )
-    g = FDMOperator(
-        RK4(),
-        ThreePointCentralDifferenceMethod(),
-        0.02,
-        fused_kernels=fused,
-    )
-    return PararealOperator(
-        f,
-        g,
-        None,
-        max_iterations=max_iterations,
-        num_time_slices=16,
-        relaxation=relaxation,
-    )
-
-
-def test_sequential_fused_batched_parareal_matches_generic():
-    # 16 slices on at most 8 devices with a 129x129 grid: the batched
-    # fine ends run the Pallas batch-grid end kernel and the final
-    # trajectories lax.map the fused trajectory kernel (no termination
-    # tolerance, so the affine-propagator path stays off and the fused
-    # stencil path is exercised)
-    import jax
-
-    ivp = _large_grid_diffusion_ivp()
-    jax.config.update("jax_enable_x64", False)
-    try:
-        fused_y = (
-            _sequential_fused_operators(True, "f", 2)
-            .solve(ivp)
-            .discrete_y()
-        )
-        generic_y = (
-            _sequential_fused_operators(False, "f", 2)
-            .solve(ivp)
-            .discrete_y()
-        )
-    finally:
-        jax.config.update("jax_enable_x64", True)
-    assert fused_y.shape == generic_y.shape
-    # identical schedule; only fused-vs-generic stencil rounding
-    assert np.max(np.abs(fused_y - generic_y)) < 1e-4
-
-
-@pytest.mark.slow
-def test_sequential_fused_fcf_parareal_matches_generic():
-    # FCF with a batched fused coarse end kernel in the corrections
-    # must pair the sweeps with the (bit-identical) unbatched fused
-    # end kernel; validated against the all-generic FCF schedule
-    import jax
-
-    ivp = _large_grid_diffusion_ivp()
-    jax.config.update("jax_enable_x64", False)
-    try:
-        fused_y = (
-            _sequential_fused_operators(True, "fcf", 1)
-            .solve(ivp)
-            .discrete_y()
-        )
-        generic_y = (
-            _sequential_fused_operators(False, "fcf", 1)
-            .solve(ivp)
-            .discrete_y()
-        )
-    finally:
-        jax.config.update("jax_enable_x64", True)
-    assert np.max(np.abs(fused_y - generic_y)) < 1e-4
 
 
 def test_nonlinear_quadratic_ml_coarse_parareal_matches_fine():
@@ -622,8 +498,7 @@ def test_nonlinear_quadratic_ml_coarse_parareal_matches_fine():
     n_y = int(np.prod(cp.y_shape(True)))
 
     f = FDMOperator(
-        RK4(), ThreePointCentralDifferenceMethod(), 0.005,
-        fused_kernels=False,
+        RK4(), ThreePointCentralDifferenceMethod(), 0.005
     )
     n_slices = 8
     sml = SupervisedMLOperator(t_end / n_slices, True)
@@ -675,8 +550,7 @@ def test_iteration_materialization_matches_final():
     ivp = _diffusion_ivp()
     cp = ivp.constrained_problem
     f = FDMOperator(
-        RK4(), ThreePointCentralDifferenceMethod(), 0.01,
-        fused_kernels=False,
+        RK4(), ThreePointCentralDifferenceMethod(), 0.01
     )
     g = FDMOperator(RK4(), ThreePointCentralDifferenceMethod(), 0.05)
     y_0 = jnp.asarray(ivp.initial_condition.discrete_y_0(True))
@@ -710,10 +584,10 @@ def test_iteration_materialization_matches_final():
 
 
 def test_one_shot_iteration_packed_raw_path_exact_with_exact_coarse():
-    """max_iterations=1 + "iteration" materialization + packed batched
-    kernel takes the raw-packed fast path (shift-add fused in packed
-    layout); with the coarse operator EQUAL to the fine one, a single
-    iteration must reproduce the fine solve to float32 accuracy."""
+    """max_iterations=1 + "iteration" materialization over vmap-batched
+    slices (more slices than devices on a small grid); with the coarse
+    operator EQUAL to the fine one, a single iteration must reproduce
+    the fine solve to float32 accuracy."""
     import jax
     import jax.numpy as jnp
     from pararealml_tpu import BurgersEquation
@@ -736,9 +610,7 @@ def test_one_shot_iteration_packed_raw_path_exact_with_exact_coarse():
         np.asarray(ic.discrete_y_0(True), np.float32)
     )
     t_0 = jnp.asarray(0.0, y_0.dtype)
-    fine_fn, _ = f.trajectory_function(
-        cp, (0.0, t_end), allow_fused=False
-    )
+    fine_fn, _ = f.trajectory_function(cp, (0.0, t_end))
     fine = np.asarray(jax.jit(fine_fn)(y_0, t_0))
 
     parareal = PararealOperator(
@@ -756,8 +628,8 @@ def test_one_shot_iteration_packed_raw_path_exact_with_exact_coarse():
 
 
 def test_iteration_materialization_packed_batched_path():
-    """"iteration" materialization through the width-packed batched
-    trajectory kernel (more slices than devices on a small grid)."""
+    """"iteration" materialization over vmap-batched slice
+    trajectories (more slices than devices on a small grid)."""
     import jax
     import jax.numpy as jnp
     from pararealml_tpu import BurgersEquation
@@ -783,9 +655,7 @@ def test_iteration_materialization_packed_batched_path():
     )
     t_0 = jnp.asarray(0.0, y_0.dtype)
 
-    fine_fn, _ = f.trajectory_function(
-        cp, (0.0, t_end), allow_fused=False
-    )
+    fine_fn, _ = f.trajectory_function(cp, (0.0, t_end))
     fine = np.asarray(jax.jit(fine_fn)(y_0, t_0))
     parareal = PararealOperator(
         f, g, 1e-6, num_time_slices=16, materialize="iteration"

@@ -73,13 +73,11 @@ def _operators(fine_d_t=0.005, coarse_d_t=0.025):
         RK4(),
         ThreePointCentralDifferenceMethod(),
         fine_d_t,
-        fused_kernels=False,
     )
     g = FDMOperator(
         RK4(),
         ThreePointCentralDifferenceMethod(),
         coarse_d_t,
-        fused_kernels=False,
     )
     return f, g
 

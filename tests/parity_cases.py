@@ -246,23 +246,14 @@ def equation_cases() -> Dict[str, Dict[str, Any]]:
 
 def solve_fdm_trajectory(module_namespace, fdm_namespace, case):
     """Solves a case with the namespace's FDM operator (RK4 + three-point
-    central differences, no fused kernels where the knob exists) and
-    returns the discrete trajectory as float64."""
+    central differences) and returns the discrete trajectory as
+    float64."""
     ivp = case["build"](module_namespace)
-    operator_cls = fdm_namespace["FDMOperator"]
     differentiator = fdm_namespace["ThreePointCentralDifferenceMethod"](
         case.get("differentiator_tol", 1e-3)
     )
-    try:
-        operator = operator_cls(
-            fdm_namespace["RK4"](),
-            differentiator,
-            case["d_t"],
-            fused_kernels=False,
-        )
-    except TypeError:  # the reference has no fused-kernel knob
-        operator = operator_cls(
-            fdm_namespace["RK4"](), differentiator, case["d_t"]
-        )
+    operator = fdm_namespace["FDMOperator"](
+        fdm_namespace["RK4"](), differentiator, case["d_t"]
+    )
     solution = operator.solve(ivp)
     return np.asarray(solution.discrete_y(), np.float64)

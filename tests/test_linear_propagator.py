@@ -1,4 +1,4 @@
-"""Tests for the affine (linear) propagator formulation — the MXU
+"""Tests for the affine (linear) propagator formulation — the
 matmul path Parareal sub-solves use on linear problems
 (:mod:`pararealml_tpu.ops.linear_propagator`).
 
@@ -168,7 +168,10 @@ def test_trajectory_and_end_function_match_stepping():
         expected[-1],
         atol=1e-9,
     )
-    assert trajectory.vmappable
+    batched = np.asarray(
+        jax.vmap(trajectory)(jnp.stack([y_0, 2.0 * y_0]))
+    )
+    np.testing.assert_allclose(batched[0], actual, atol=1e-9)
 
     # the materialized slice map (P, r) must reproduce the composed
     # n_steps-step affine map (it feeds Parareal's doubling-scan
@@ -191,14 +194,11 @@ def test_fdm_time_parallel_trajectory_matches_generic():
     op = FDMOperator(
         RK4(), ThreePointCentralDifferenceMethod(), 0.01
     )
-    generic_fn, t = op.trajectory_function(
-        cp, (0.0, 0.5), allow_fused=False
-    )
+    generic_fn, t = op.trajectory_function(cp, (0.0, 0.5))
     prop_fn, t_p = op.trajectory_function(
-        cp, (0.0, 0.5), allow_fused=False, time_parallel=True
+        cp, (0.0, 0.5), time_parallel=True
     )
     assert prop_fn is not generic_fn
-    assert getattr(prop_fn, "vmappable", False)
     np.testing.assert_allclose(np.asarray(t), np.asarray(t_p))
     expected = np.asarray(generic_fn(y_0, jnp.asarray(0.0)))
     actual = np.asarray(prop_fn(y_0, jnp.asarray(0.0)))
@@ -220,9 +220,7 @@ def test_fdm_linear_propagator_opt_out():
         0.01,
         linear_propagator=False,
     )
-    fn, _ = op.trajectory_function(
-        cp, (0.0, 0.1), allow_fused=False, time_parallel=True
-    )
+    fn, _ = op.trajectory_function(cp, (0.0, 0.1), time_parallel=True)
     assert not hasattr(fn, "end_function")
 
 

@@ -185,8 +185,7 @@ def test_fdm_solve_matches_reference(reference):
     ref_ivp = _build_diffusion_problem(ref, 0.5)
 
     my_solution = FDMOperator(
-        RK4(), ThreePointCentralDifferenceMethod(), 0.01,
-        fused_kernels=False,
+        RK4(), ThreePointCentralDifferenceMethod(), 0.01
     ).solve(my_ivp)
     ref_solution = ref_fdm.FDMOperator(
         ref_fdm.RK4(), ref_fdm.ThreePointCentralDifferenceMethod(), 0.01
@@ -383,13 +382,11 @@ def test_single_slice_parareal_matches_reference(reference):
         mine_fdm.RK4(),
         mine_fdm.ThreePointCentralDifferenceMethod(),
         case["d_t"],
-        fused_kernels=False,
     )
     my_g = mine_fdm.FDMOperator(
         mine_fdm.RK4(),
         mine_fdm.ThreePointCentralDifferenceMethod(),
         case["d_t"] * 2,
-        fused_kernels=False,
     )
     my_y = PararealOperator(
         my_f, my_g, tolerance, num_time_slices=1
